@@ -1,0 +1,39 @@
+"""The SlideSparse operator pair (Phi, Psi) — paper §3.
+
+``phi`` (weight transformation) is the packer; ``lift`` (activation
+lifting Psi, §3.3) replicates input elements by window coverage — pure
+index remapping — so that ``w^T x == Phi(w)^T Psi(x)`` (paper Eq. 3).
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .patterns import HardwarePattern, Pattern, SlideDecomposition
+from . import packer
+
+
+@functools.lru_cache(maxsize=None)
+def lift_index_map(k: int, z: int, l: int, m: int, n: int) -> np.ndarray:
+    """Gather indices idx[gamma*K] with Psi(x) = x[..., idx]: output
+    position (group g, window j, offset d) reads source L*g + s*j + d."""
+    dec = SlideDecomposition(Pattern(z, l), HardwarePattern(m, n))
+    g = k // l
+    block = np.asarray(dec.lift_indices_block(), dtype=np.int32)
+    return (np.arange(g, dtype=np.int32)[:, None] * l
+            + block[None, :]).reshape(-1)
+
+
+def lift(x: torch.Tensor, dec: SlideDecomposition) -> torch.Tensor:
+    """Activation lifting Psi: [..., K] -> [..., gamma*K] (paper Eq. 4)."""
+    idx = lift_index_map(x.shape[-1], dec.source.z, dec.source.l,
+                         dec.hw.m, dec.hw.n)
+    return x.index_select(-1, torch.as_tensor(idx, dtype=torch.long,
+                                              device=x.device))
+
+
+def phi(w: torch.Tensor, dec: SlideDecomposition) -> torch.Tensor:
+    """Weight transformation Phi (Thm 1 constructive proof / Alg. 2)."""
+    return packer.pack_slided(w, dec)

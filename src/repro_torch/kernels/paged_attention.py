@@ -1,0 +1,91 @@
+"""Wrapper of the CUDA paged flash attention (``csrc/paged_attention.cu``).
+
+The port of ``repro.kernels.paged_attention._flash_pallas``: attention of
+``q [B, L, H, hd]`` over a page pool ``{'k','v'[,'k_scale','v_scale']}``
+of shape ``[num_pages, P, KVH, hd]`` through ``page_table [B, maxp]``,
+where query lane ``i`` of sequence ``b`` sees positions ``< kv_len[b] + i``
+(decode L = 1, prefill chunk L = C).  Written in CUDA C++ rather than
+Triton: it shares the nvcc + ctypes build of the matmul kernel (seconds,
+no JIT per shape), and the non-power-of-two head_dim (120) is padded in
+shared memory by hand.  ``launch_count`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+_KV_MODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_COUNTS = {"launches": 0}
+
+
+def launch_count() -> int:
+    return _COUNTS["launches"]
+
+
+def reset_counts() -> None:
+    _COUNTS["launches"] = 0
+
+
+@functools.cache
+def _fn():
+    fn = _build.load("paged_attention").paged_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _need(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"paged_attention_cuda: {msg}")
+
+
+def paged_attention_cuda(q: torch.Tensor, pool: dict,
+                         page_table: torch.Tensor, kv_len: torch.Tensor,
+                         window: int | None) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors; returns [B, L, H, hd] in q.dtype."""
+    _need(q.is_cuda, "q must be a CUDA tensor (CPU tensors take the plain "
+          "version in kernels.ref)")
+    b, lanes, h, hd = q.shape
+    k, v = pool["k"], pool["v"]
+    num_pages, page_size, kvh, hd_k = k.shape
+    _need(q.dtype in (torch.float32, torch.bfloat16),
+          f"unsupported q dtype {q.dtype}")
+    _need(k.dtype in _KV_MODE and v.dtype == k.dtype,
+          f"unsupported pool dtype {k.dtype}")
+    _need(hd_k == hd and v.shape == k.shape, "pool shape mismatch")
+    _need(h % kvh == 0, f"q heads {h} not a multiple of kv heads {kvh}")
+    _need(hd <= 128, f"head_dim {hd} > 128")
+    _need(page_table.dtype == torch.int32 and page_table.dim() == 2
+          and page_table.shape[0] == b, "page_table must be int32 [B, maxp]")
+    _need(kv_len.dtype == torch.int32 and kv_len.shape == (b,),
+          "kv_len must be int32 [B]")
+    quantized = k.dtype == torch.int8
+    operands = [q, k, v, page_table, kv_len]
+    if quantized:
+        ks, vs = pool["k_scale"], pool["v_scale"]
+        _need(ks.shape == (num_pages, page_size, kvh, 1) == vs.shape
+              and ks.dtype == vs.dtype == torch.float32,
+              "int8 pools need fp32 scale pools [num_pages, P, KVH, 1]")
+        operands += [ks, vs]
+    for t in operands:
+        _need(t.device == q.device, "all operands on one device")
+        _need(t.is_contiguous(), "operands must be contiguous")
+
+    out = torch.empty_like(q)
+    err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                pool["k_scale"].data_ptr() if quantized else None,
+                pool["v_scale"].data_ptr() if quantized else None,
+                page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+                b, lanes, h, kvh, hd, page_size, page_table.shape[1],
+                -1 if window is None else int(window),
+                hd ** -0.5,  # rounded to fp32 by c_float, as JAX does
+                int(q.dtype == torch.bfloat16), _KV_MODE[k.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "paged_attention_launch")
+    _COUNTS["launches"] += 1
+    return out

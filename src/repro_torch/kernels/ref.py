@@ -1,0 +1,135 @@
+"""Plain PyTorch versions of the port's kernels.
+
+They define the semantics the CUDA kernels must match, mirror the JAX
+oracles (``repro.kernels.ref`` and ``paged_attention._flash_ref``) op for
+op, and are the execution path for tensors on the CPU.  On the card they
+serve only as the comparison in tests and ``chip_smoke.py``: the
+dispatchers in ``ops`` never route a CUDA tensor here.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import compressed as comp, precision, quant
+
+NEG_INF = -1e30
+
+ACTIVATIONS = {
+    None: lambda v: v,
+    "silu": lambda v: v * torch.sigmoid(v),  # jax.nn.silu's form
+    "gelu": lambda v: F.gelu(v, approximate="tanh"),  # jax.nn.gelu default
+}
+
+
+def apply_activation(v: torch.Tensor, activation: str | None) -> torch.Tensor:
+    """Shared epilogue nonlinearity."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unsupported epilogue activation {activation!r};"
+                         f" expected one of {sorted(ACTIVATIONS, key=str)}")
+    return ACTIVATIONS[activation](v)
+
+
+def epilogue(y: torch.Tensor, bias: torch.Tensor | None,
+             activation: str | None) -> torch.Tensor:
+    """Bias + nonlinearity on the fp32 accumulator, in the JAX order."""
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    return apply_activation(y, activation)
+
+
+def compressed_matmul_fp(x: torch.Tensor, c: comp.CompressedSlided,
+                         out_dtype=None, bias=None,
+                         activation: str | None = None) -> torch.Tensor:
+    """Float path: decompress to the original layout, fp32 dense matmul.
+    x: [rows, K] -> [rows, out]."""
+    out_dtype = out_dtype or x.dtype
+    w_rec = comp.decompress_original(c)
+    acc = x.to(torch.float32) @ w_rec.to(torch.float32).T
+    return epilogue(acc, bias, activation).to(out_dtype)
+
+
+def compressed_matmul_quant(x: torch.Tensor, c: comp.CompressedSlided,
+                            s_w: torch.Tensor, recipe, out_dtype=None,
+                            bias=None, activation: str | None = None
+                            ) -> torch.Tensor:
+    """Quantized path: per-token activation quantization (int8 or e4m3),
+    then :func:`compressed_matmul_dequant`.  s_w: [out, 1] fp32."""
+    rec = precision.resolve(recipe)
+    qx = rec.quantize_act(x)
+    return compressed_matmul_dequant(qx.q, qx.scale, c, s_w,
+                                     out_dtype or x.dtype, bias, activation)
+
+
+def compressed_matmul_dequant(q_x: torch.Tensor, s_x: torch.Tensor,
+                              c: comp.CompressedSlided, s_w: torch.Tensor,
+                              out_dtype, bias=None,
+                              activation: str | None = None) -> torch.Tensor:
+    """What the CUDA kernel computes on quantized operands: decompress the
+    int8/int4 values, exact integer (or fp32 for e4m3) dot, dequant
+    epilogue ``(acc * s_x) * s_w``, bias, activation, cast."""
+    acc = quant.quant_dot(q_x, comp.decompress_original(c))
+    y = acc.to(torch.float32) * s_x * s_w[:, 0][None, :]
+    return epilogue(y, bias, activation).to(out_dtype)
+
+
+def flash_paged(q: torch.Tensor, pool: dict, page_table: torch.Tensor,
+                kv_len: torch.Tensor, window: int | None,
+                block_pages: int) -> torch.Tensor:
+    """Flash paged attention, the mirror of ``_flash_ref``: a loop over
+    blocks of ``block_pages`` pages up to the longest row, online softmax
+    in fp32 with q pre-scaled by hd^-0.5, GQA rows grouped per KV head,
+    row ``i`` of sequence ``b`` bounded by ``kv_len[b] + i`` (and by the
+    sliding window), int8 pages dequantized from their scale pages before
+    each dot.  q: [B, L, H, hd] -> [B, L, H, hd] in q.dtype."""
+    b, lanes, h, hd = q.shape
+    page_size, kvh = pool["k"].shape[1], pool["k"].shape[2]
+    rep = h // kvh
+    maxp = page_table.shape[1]
+    bp = max(1, min(block_pages, maxp))
+    pad = (-maxp) % bp
+    # pad with page 0: its positions are >= maxp*P >= every row_len, so the
+    # kv_len mask drops them (the convention of unallocated table entries)
+    pt = F.pad(page_table, (0, pad)) if pad else page_table
+    nblocks = (maxp + pad) // bp
+    quantized = pool["k"].dtype == torch.int8
+    tokens = bp * page_size
+    dev = q.device
+
+    q5 = (q.to(torch.float32) * hd ** -0.5).reshape(b, lanes, kvh, rep, hd)
+    row_len = (kv_len.to(torch.int32)[:, None]
+               + torch.arange(lanes, dtype=torch.int32, device=dev)[None, :])
+    needed = min(max(0, (int(row_len.max()) + tokens - 1) // tokens),
+                 nblocks)
+
+    m = torch.full((b, kvh, rep, lanes), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((b, kvh, rep, lanes), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, kvh, rep, lanes, hd), dtype=torch.float32,
+                      device=dev)
+    for i in range(needed):
+        ids = pt[:, i * bp:(i + 1) * bp].long()           # [B, bp]
+        kb, vb = pool["k"][ids], pool["v"][ids]           # [B, bp, P, KVH, hd]
+        if quantized:
+            kb = kb.to(torch.float32) * pool["k_scale"][ids]
+            vb = vb.to(torch.float32) * pool["v_scale"][ids]
+        kb = kb.reshape(b, tokens, kvh, hd).to(torch.float32)
+        vb = vb.reshape(b, tokens, kvh, hd).to(torch.float32)
+        pos = i * tokens + torch.arange(tokens, dtype=torch.int32, device=dev)
+        ok = pos[None, None, :] < row_len[:, :, None]     # [B, L, T]
+        if window is not None:
+            ok &= pos[None, None, :] >= row_len[:, :, None] - window
+        okb = ok[:, None, None, :, :]
+        s = torch.einsum("bqgrd,bkgd->bgrqk", q5, kb)
+        s = torch.where(okb, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        # the where guards the all-masked block: NEG_INF - NEG_INF is 0
+        # and exp(0) would smuggle weight-1 garbage into l/acc
+        p = torch.where(okb, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bgrqk,bkgd->bgrqd",
+                                                    p, vb)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]     # [B, G, rep, L, hd]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, lanes, h, hd).to(q.dtype)
