@@ -3,11 +3,16 @@
 root of a checkout, on a machine with one NVIDIA H100.
 
 Phases (any failed check exits nonzero):
-1. device and build: the card's name and power limit, then both CUDA
+1. device and build: the card's name and power limit, then the five CUDA
    kernels built from ``src/repro_torch/csrc`` (one nvcc each, together);
 2. B1, the compressed-matmul kernel, against its plain version at every
    h2o-danube-3-4b projection shape x R in {1, 4, prefill_chunk} x
    recipes int8, w4 (bit-equal) and fp8, none (bf16; tolerance below);
+2b. B3 (fused quant+lift+GEMM), B4 (quant+lift) and B5 (dense quantized
+   GEMM) against their plain versions at the same shapes x R: B3 int8/w4,
+   B4 and B5 int8 bit-equal, fp8 within two bf16 ulps of max|plain|; the
+   pipeline B4 -> B5 bit-equal to B3 for int8; the same checks at
+   N = 2, 3 with ragged shapes and f32 inputs; B3 with bias + SiLU;
 3. B2, the paged-attention kernel, against its plain version at full
    width (H=32, KVH=8, hd=120, page 16): decode B=4 up to ~1000 tokens and
    a 128-lane prefill chunk, window off and shorter than kv_len, bf16 and
@@ -20,7 +25,11 @@ Phases (any failed check exits nonzero):
    balance, and each request's last-prefill logits must agree with the
    one-shot prefill on the same weights, within a fixed limit that two
    planted faults, read in the same run, must exceed;
-5. a ``kernels`` JSON line, the card line, and the final result line.
+5. the slided engine: the same model, weights and traffic in
+   ``mode="slided"``; B3's count must rise during ``run()`` and B1's stay
+   at 0, every request must finish OK, and the streams and first-token
+   logits must equal the compressed engine's bit for bit;
+6. a ``kernels`` JSON line, the card line, and the final result line.
 
 It imports neither JAX nor the JAX package, and prints every table it
 measures on standard output.
@@ -195,6 +204,206 @@ def phase_b1(torch, timer):
     return max_err, step
 
 
+# ---------------------------------------------------------------- phase 2b
+def phase_slided_kernels(torch, timer):
+    """B3 (fused quant+lift+GEMM), B4 (quant+lift) and B5 (dense quantized
+    GEMM) against their plain versions at every projection shape x R."""
+    from repro_torch.core import linear as sl, packer
+    from repro_torch.kernels import fused_quant_slide as fqs, \
+        fused_slide_matmul as fsm, quant_matmul as qmm, ref
+
+    log("== B3 fused_slided_matmul / B4 fused_quant_slide / B5 quant_matmul "
+        "vs plain (int8, w4 and B4 bit-equal; fp8 within 2 bf16 ulps of "
+        "max|plain|; B4->B5 bit-equal to B3 for int8) ==")
+    log("kernel recipe M K R | kernel_ms plain_ms library_ms bound_ms "
+        "bound_by | max_abs_err")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    names = ("B3", "B4", "B5")
+    err = dict.fromkeys(names, 0.0)
+    step = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                "bytes_s": 0.0, "ops_s": 0.0} for n in names}
+
+    def check(name, recipe, m, k, r, y, y_ref):
+        e = (y.float() - y_ref.float()).abs().max().item()
+        if name == "B4" or recipe in ("int8", "w4"):
+            assert torch.equal(y.view(torch.uint8) if y.dtype ==
+                               torch.float8_e4m3fn else y,
+                               y_ref.view(torch.uint8) if y_ref.dtype ==
+                               torch.float8_e4m3fn else y_ref), \
+                f"{name} {recipe} {m}x{k} R={r}: not bit-equal ({e})"
+        else:
+            scale = y_ref.float().abs().max().item()
+            assert e <= 2 ** -7 * scale, \
+                f"{name} {recipe} {m}x{k} R={r}: err {e} > 2^-7*{scale}"
+        err[name] = max(err[name], e)
+
+    def measure(name, recipe, m, k, r, kern, plain, library, nbytes, ops):
+        t_k = timer(kern)
+        t_p = timer(plain, iters=3, warmup=1)
+        t_l = timer(library) if library is not None else None
+        b_ms, b_by = bound(nbytes, ops, "int8")
+        lib = f"{t_l:.4f}" if t_l is not None else "null"
+        log(f"{name} {recipe} {m} {k} {r} | {t_k:.4f} {t_p:.4f} {lib} "
+            f"{b_ms:.4f} {b_by} | {err[name]:.3g}")
+        if recipe == "int8" and r == 4:
+            n = STEP_COUNTS[(m, k)]
+            st = step[name]
+            st["ms"] += n * t_k
+            st["plain_ms"] += n * t_p
+            st["library_ms"] = (None if t_l is None
+                                else st["library_ms"] + n * t_l)
+            st["bytes_s"] += n * nbytes / HBM_BYTES_S
+            st["ops_s"] += n * ops / PEAK_OPS["int8"]
+
+    for recipe in ("int8", "w4", "fp8", "fp8w4"):
+        cfg = sl.SparsityConfig(pattern=(6, 8), mode="slided", recipe=recipe)
+        rec, dec = cfg.recipe, cfg.decomposition()
+        fp8 = rec.act == "fp8"
+        for m, k in SHAPES:
+            w = (torch.randn((m, k), generator=gen, device="cuda")
+                 * k ** -0.5).to(torch.bfloat16)
+            p = sl.prepare({"w": w}, cfg)
+            ws, s_w = p["w_slided"], p["s_w"]
+            gk = ws.shape[1] * (2 if rec.packed_weights else 1)
+            # the dense K-wide operands: B5's weights and the yardstick's
+            qw = rec.quantize_weight(packer.prune_to_pattern(w, dec.source))
+            w_dense = (qw.q.float() * qw.scale).to(torch.bfloat16)
+            del w, p
+            for r in (1, 4, PREFILL_CHUNK):
+                x = torch.randn((r, k), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+
+                def b3():
+                    return fsm.fused_slided_matmul_cuda(
+                        x, ws, s_w, n_fam=4, act=rec.act,
+                        packed=rec.packed_weights, out_dtype=torch.bfloat16)
+
+                def b3_plain():
+                    return ref.slided_matmul_quant(x, ws, s_w, dec, rec,
+                                                   torch.bfloat16)
+
+                def library():
+                    return torch.matmul(x, w_dense.T)
+
+                n0 = fsm.launch_count()
+                y = b3()
+                torch.cuda.synchronize()
+                assert fsm.launch_count() == n0 + 1
+                check("B3", recipe, m, k, r, y, b3_plain())
+                measure("B3", recipe, m, k, r, b3, b3_plain, library,
+                        ws.numel() + 4 * m + r * k * 2 + r * m * 2,
+                        2 * r * m * k * 0.75)
+                if rec.packed_weights:
+                    continue
+                q, s_x = fqs.fused_quant_slide_cuda(x, n_fam=4, fp8=fp8)
+                q_ref, s_ref = ref.fused_quant_slide(x, dec, fp8=fp8)
+                check("B4", recipe, m, k, r, q, q_ref)
+                check("B4", recipe, m, k, r, s_x, s_ref)
+                if recipe == "int8":
+                    # the two-kernel pipeline sums the same integers
+                    y2 = qmm.quant_matmul_cuda(q, s_x, ws, s_w,
+                                               out_dtype=torch.bfloat16)
+                    assert torch.equal(y2, y), \
+                        f"B4->B5 != B3 at {m}x{k} R={r}"
+                measure("B4", recipe, m, k, r,
+                        lambda: fqs.fused_quant_slide_cuda(x, n_fam=4,
+                                                           fp8=fp8),
+                        lambda: ref.fused_quant_slide(x, dec, fp8=fp8), None,
+                        r * k * 2 + r * gk + 4 * r, 0)
+                qx = rec.quantize_act(x)
+
+                def b5():
+                    return qmm.quant_matmul_cuda(qx.q, qx.scale, qw.q,
+                                                 qw.scale,
+                                                 out_dtype=torch.bfloat16)
+
+                def b5_plain():
+                    return ref.quant_matmul(qx.q, qx.scale, qw.q, qw.scale,
+                                            torch.bfloat16)
+                check("B5", recipe, m, k, r, b5(), b5_plain())
+                measure("B5", recipe, m, k, r, b5, b5_plain, library,
+                        r * k + 4 * r + m * k + 4 * m + r * m * 2,
+                        2 * r * m * k)
+            del ws, s_w, qw, w_dense
+        torch.cuda.empty_cache()
+
+    # the other families and ragged edges: N = 2, 3 (gamma*K not a
+    # multiple of 16 at K = 120, so the byte-wise tails run), M not a
+    # multiple of the tiles, R across both tilings, f32 and bf16 inputs
+    cases = 0
+    for z, l in ((2, 4), (4, 6)):
+        for recipe in ("int8", "w4", "fp8"):
+            cfg = sl.SparsityConfig(pattern=(z, l), mode="slided",
+                                    recipe=recipe)
+            rec, dec = cfg.recipe, cfg.decomposition()
+            for m, k in ((37, 120), (100, 48), (960, 3840)):
+                w = torch.randn((m, k), generator=gen, device="cuda")
+                p = sl.prepare({"w": w}, cfg)
+                for r in (1, 5, 40):
+                    for dt in (torch.float32, torch.bfloat16):
+                        x = torch.randn((r, k), generator=gen,
+                                        device="cuda").to(dt)
+                        y = fsm.fused_slided_matmul_cuda(
+                            x, p["w_slided"], p["s_w"], n_fam=l // 2,
+                            act=rec.act, packed=rec.packed_weights,
+                            out_dtype=torch.bfloat16)
+                        check("B3", recipe, m, k, r, y,
+                              ref.slided_matmul_quant(
+                                  x, p["w_slided"], p["s_w"], dec, rec,
+                                  torch.bfloat16))
+                        cases += 1
+                        if rec.packed_weights:
+                            continue
+                        fp8 = rec.act == "fp8"
+                        q, s_x = fqs.fused_quant_slide_cuda(x, n_fam=l // 2,
+                                                            fp8=fp8)
+                        q_ref, s_ref = ref.fused_quant_slide(x, dec, fp8=fp8)
+                        check("B4", recipe, m, k, r, q, q_ref)
+                        check("B4", recipe, m, k, r, s_x, s_ref)
+                        if recipe == "int8":
+                            assert torch.equal(qmm.quant_matmul_cuda(
+                                q, s_x, p["w_slided"], p["s_w"],
+                                out_dtype=torch.bfloat16), y), \
+                                f"B4->B5 != B3 at {z}:{l} {m}x{k} R={r}"
+    log(f"N = 2, 3 and ragged shapes: {cases} B3/B4 cases held (w4: B3 "
+        "only)")
+
+    # the epilogue: bias + SiLU at one shape, against the plain version
+    cfg = sl.SparsityConfig(pattern=(6, 8), mode="slided", recipe="int8")
+    m, k = 10240, 3840
+    w = (torch.randn((m, k), generator=gen, device="cuda")
+         * k ** -0.5).to(torch.bfloat16)
+    p = sl.prepare({"w": w}, cfg)
+    bias = torch.randn((m,), generator=gen, device="cuda")
+    x = torch.randn((4, k), generator=gen, device="cuda").to(torch.bfloat16)
+    y = fsm.fused_slided_matmul_cuda(x, p["w_slided"], p["s_w"], bias,
+                                     n_fam=4, out_dtype=torch.bfloat16,
+                                     activation="silu")
+    y_ref = ref.slided_matmul_quant(x, p["w_slided"], p["s_w"],
+                                    cfg.decomposition(), "int8",
+                                    torch.bfloat16, bias=bias,
+                                    activation="silu")
+    check("B3", "int8+bias+silu", m, k, 4, y, y_ref)
+    log(f"B3 int8 + bias + SiLU {m}x{k} R=4: max abs err "
+        f"{(y.float() - y_ref.float()).abs().max().item():.3g}")
+    del w, p
+    torch.cuda.empty_cache()
+
+    for name, what in (("B3", "169 slided linears"),
+                       ("B4", "169 quant+lift calls"),
+                       ("B5", "169 dense int8 linears")):
+        st = step[name]
+        st["bound_ms"] = max(st["bytes_s"], st["ops_s"]) * 1e3
+        st["bound_by"] = ("bytes" if st["bytes_s"] >= st["ops_s"]
+                          else "operations")
+        lib = (f"{st['library_ms']:.3f} ms" if st["library_ms"] is not None
+               else "null")
+        log(f"{name} per decode step (int8, R=4, {what}): kernel "
+            f"{st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms, library "
+            f"{lib}, bound {st['bound_ms']:.3f} ms ({st['bound_by']})")
+    return err, step
+
+
 # ----------------------------------------------------------------- phase 3
 def phase_b2(torch, timer):
     import torch.nn.functional as F
@@ -308,21 +517,34 @@ def phase_b2(torch, timer):
 
 
 # ----------------------------------------------------------------- phase 4
-def phase_engine(torch, card):
+PLENS, NEW_TOKENS = [53, 117, 211, 298], 32
+
+
+def _counters():
+    """Each kernel's wrapper module, which counts the kernel's launches."""
+    from repro_torch.kernels import fused_quant_slide, fused_slide_matmul, \
+        paged_attention, quant_matmul, slide_matmul
+    return {"compressed_matmul": slide_matmul,
+            "paged_attention": paged_attention,
+            "fused_slided_matmul": fused_slide_matmul,
+            "fused_quant_slide": fused_quant_slide,
+            "quant_matmul": quant_matmul}
+
+
+def _engine_setup(torch, mode):
+    """The full 24-layer model at 6:8 in ``mode``, int8, bf16, fused
+    attention, packed from the seed-0 init; the 4 staggered prompts drawn
+    from the same generator; the engine warmed up."""
     import dataclasses
     from repro_torch.configs import registry
     from repro_torch.core.linear import SparsityConfig
-    from repro_torch.kernels import ops as kops, paged_attention as pa, \
-        slide_matmul as smm
     from repro_torch.models import model as M
     from repro_torch.runtime import serve_loop
 
-    log("== engine: h2o-danube-3-4b 24L d3840, 6:8 compressed int8, bf16, "
-        "fused attention ==")
     cfg = dataclasses.replace(
         registry.get("h2o-danube-3-4b"),
-        sparsity=SparsityConfig(pattern=(6, 8), mode="compressed",
-                                recipe="int8", fused_attention=True))
+        sparsity=SparsityConfig(pattern=(6, 8), mode=mode, recipe="int8",
+                                fused_attention=True))
     assert cfg.dtype == "bfloat16" and cfg.kv_cache_dtype == "bfloat16"
     t0 = time.time()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -333,35 +555,53 @@ def phase_engine(torch, card):
                  for blk in ("mixer", "ffn") for lin in lp[blk].values()
                  for t in lin.values()) + sum(
         t.numel() * t.element_size() for t in params["lm_head"].values())
-    log(f"init + pack: {time.time() - t0:.1f} s; compressed linears "
+    log(f"init + pack: {time.time() - t0:.1f} s; {mode} linears "
         f"{packed / 1e9:.2f} GB; device memory "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
-
-    plens, new_tokens = [53, 117, 211, 298], 32
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
-                             device="cuda").tolist() for n in plens]
+                             device="cuda").tolist() for n in PLENS]
     ecfg = serve_loop.EngineConfig(max_batch=4, page_size=16, num_pages=128,
-                                   max_seq_len=max(plens) + new_tokens,
+                                   max_seq_len=max(PLENS) + NEW_TOKENS,
                                    prefill_chunk=PREFILL_CHUNK)
     eng = serve_loop.ServeEngine(params, cfg, ecfg, device="cuda")
     log(f"warmup: {eng.warmup():.2f} s")
+    return cfg, params, prompts, ecfg, eng
+
+
+def _engine_run(eng, prompts):
+    """Serve the prompts with every kernel count set to 0 just before
+    ``run()``; returns (completions, launches read just after)."""
+    counters = _counters()
     for i, p in enumerate(prompts):
-        eng.submit(p, new_tokens, rid=i, arrival=2 * i)
-    smm.reset_counts()
-    pa.reset_counts()
+        eng.submit(p, NEW_TOKENS, rid=i, arrival=2 * i)
+    for mod in counters.values():
+        mod.reset_counts()
     out = eng.run()
-    launches = {"compressed_matmul": smm.launch_count(),
-                "paged_attention": pa.launch_count()}
+    launches = {name: mod.launch_count() for name, mod in counters.items()}
     s = eng.stats
     log(f"run: {s.steps} steps, {s.decode_steps} decode steps, "
         f"{s.decode_tokens} decode tokens in {s.wall_s:.3f} s; launches "
-        f"{launches}; B1 weight tiles decompressed "
-        f"{smm.decompress_count()}")
-    assert all(launches[k] > 0 for k in launches), launches
+        f"{launches}")
     assert sorted(out) == list(range(len(prompts)))
-    assert all(c.ok and len(c.tokens) == new_tokens for c in out.values())
+    assert all(c.ok and len(c.tokens) == NEW_TOKENS for c in out.values())
     eng.kv.check()
+    return out, launches
 
+
+def phase_engine(torch, card):
+    from repro_torch.kernels import ops as kops, slide_matmul as smm
+    from repro_torch.models import model as M
+    from repro_torch.runtime import serve_loop
+
+    log("== engine: h2o-danube-3-4b 24L d3840, 6:8 compressed int8, bf16, "
+        "fused attention ==")
+    cfg, params, prompts, ecfg, eng = _engine_setup(torch, "compressed")
+    out, launches = _engine_run(eng, prompts)
+    log(f"B1 weight tiles decompressed {smm.decompress_count()}")
+    assert launches["compressed_matmul"] > 0, launches
+    assert launches["paged_attention"] > 0, launches
+    assert launches["fused_slided_matmul"] == 0, launches
+    s = eng.stats
     log(f"decode throughput {s.decode_tok_s:.2f} tok/s (decode tokens over "
         f"run wall time incl. prefill) on {card}")
 
@@ -404,10 +644,10 @@ def phase_engine(torch, card):
         read["short"].append(rel_l2(bad.first_logits[i].float(), ref))
         read["dropped"].append(rel_l2(
             got, M.prefill(params, cfg, tok[:, :-1])[0][0].float()))
-        ref_toks, _ = serve_loop.generate(params, cfg, tok, new_tokens)
+        ref_toks, _ = serve_loop.generate(params, cfg, tok, NEW_TOKENS)
         same += sum(int(a == b) for a, b in zip(ref_toks[0].tolist(),
                                                 out[i].tokens))
-        total += new_tokens
+        total += NEW_TOKENS
         log(f"request {i}: prompt {len(p)}; last-prefill relative L2 vs "
             f"one-shot: sound {read['sound'][-1]:.5f}, short "
             f"{read['short'][-1]:.5f}, dropped {read['dropped'][-1]:.5f}; "
@@ -424,6 +664,40 @@ def phase_engine(torch, card):
     for fault in ("short", "dropped"):
         assert worst[fault] > LOGIT_RL2, \
             f"planted fault {fault} ({worst[fault]}) passes the gate"
+    result = {"tokens": {i: c.tokens for i, c in out.items()},
+              "first_logits": {i: v.cpu() for i, v in eng.first_logits.items()},
+              "tok_s": s.decode_tok_s}
+    return launches, result
+
+
+# ----------------------------------------------------------------- phase 5
+def phase_slided_engine(torch, card, compressed):
+    """The same model, weights and traffic in mode="slided": every linear,
+    the lm_head included, through B3, and B1 never launched.  For int8 the
+    two modes sum the same integer products (Phi keeps each kept weight
+    once) and B2 is deterministic, so streams and first-token logits must
+    equal the compressed engine's bit for bit."""
+    log("== slided engine: h2o-danube-3-4b 24L d3840, 6:8 slided int8, "
+        "bf16, fused attention ==")
+    cfg, params, prompts, ecfg, eng = _engine_setup(torch, "slided")
+    out, launches = _engine_run(eng, prompts)
+    assert launches["fused_slided_matmul"] > 0, launches
+    assert launches["paged_attention"] > 0, launches
+    assert launches["compressed_matmul"] == 0, launches
+    tok_s = eng.stats.decode_tok_s
+    log(f"decode throughput {tok_s:.2f} tok/s slided vs "
+        f"{compressed['tok_s']:.2f} tok/s compressed (run wall time incl. "
+        f"prefill) on {card}")
+    for i, c in out.items():
+        assert c.tokens == compressed["tokens"][i], \
+            f"request {i}: slided stream differs from compressed"
+        got = eng.first_logits[i].cpu()
+        want = compressed["first_logits"][i]
+        assert torch.equal(got, want), \
+            f"request {i}: slided first logits differ from compressed " \
+            f"(max {(got.float() - want.float()).abs().max().item()})"
+    log(f"slided == compressed: {len(out)} streams and first-token logits "
+        "bit-equal")
     return launches
 
 
@@ -464,26 +738,41 @@ def main() -> int:
 
     timer = Timer(torch)
     b1_err, b1 = phase_b1(torch, timer)
+    sl_err, sl = phase_slided_kernels(torch, timer)
     b2_err, b2 = phase_b2(torch, timer)
     del timer
     torch.cuda.empty_cache()
-    launches = phase_engine(torch, card)
+    launches, compressed = phase_engine(torch, card)
+    torch.cuda.empty_cache()  # both packings are ~5.8 GB: free the first
+    slided_launches = phase_slided_engine(torch, card, compressed)
+
+    def entry(name, source, replaces, n, err, st):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{source}",
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": st["ms"], "kernel_ms": st["ms"],
+                "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+                "bound_by": st["bound_by"], "library_ms": st["library_ms"]}
 
     kernels = [
-        {"name": "compressed_matmul", "route": "cuda",
-         "source": "src/repro_torch/csrc/compressed_matmul.cu",
-         "replaces": "src/repro/kernels/slide_matmul.py:155",
-         "launches": launches["compressed_matmul"], "max_abs_err": b1_err,
-         "ms": b1["ms"], "kernel_ms": b1["ms"], "plain_ms": b1["plain_ms"],
-         "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
-         "library_ms": b1["library_ms"]},
-        {"name": "paged_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/paged_attention.cu",
-         "replaces": "src/repro/kernels/paged_attention.py:202",
-         "launches": launches["paged_attention"], "max_abs_err": b2_err,
-         "ms": b2["ms"], "kernel_ms": b2["ms"], "plain_ms": b2["plain_ms"],
-         "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
-         "library_ms": b2["library_ms"]},
+        entry("compressed_matmul", "compressed_matmul.cu",
+              "src/repro/kernels/slide_matmul.py:155",
+              launches["compressed_matmul"], b1_err, b1),
+        entry("paged_attention", "paged_attention.cu",
+              "src/repro/kernels/paged_attention.py:202",
+              launches["paged_attention"], b2_err, b2),
+        # B3 runs on the slided engine's path; B4 and B5 on neither
+        # engine's (the two-kernel pipeline and the dense baseline)
+        entry("fused_slided_matmul", "fused_slided_matmul.cu",
+              "src/repro/kernels/fused_slide_matmul.py:136",
+              slided_launches["fused_slided_matmul"], sl_err["B3"],
+              sl["B3"]),
+        entry("fused_quant_slide", "fused_quant_slide.cu",
+              "src/repro/kernels/fused_quant_slide.py:81",
+              slided_launches["fused_quant_slide"], sl_err["B4"], sl["B4"]),
+        entry("quant_matmul", "quant_matmul.cu",
+              "src/repro/kernels/quant_matmul.py:46",
+              slided_launches["quant_matmul"], sl_err["B5"], sl["B5"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

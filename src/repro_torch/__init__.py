@@ -2,9 +2,10 @@
 
 Laid out module for module like ``repro`` (``core``, ``kernels``,
 ``models``, ``runtime``, ``launch``, ``configs``) so each counterpart is
-found under the same name.  Plain tensor code is PyTorch; the two kernels
-of the serving path (compressed matmul, paged attention) are hand-written
-CUDA C++ for sm_90a under ``csrc/``, built with nvcc at first use.
+found under the same name.  Plain tensor code is PyTorch; the kernels
+(compressed matmul, paged attention, the fused slided matmul, quant+lift
+and the dense quantized matmul) are hand-written CUDA C++ for sm_90a
+under ``csrc/``, built with nvcc at first use.
 
 TF32 is switched off for the whole process on import: the JAX float path
 accumulates in full fp32, and the port's float matmuls (plain versions,

@@ -6,12 +6,18 @@ One config object selects the execution path for every projection:
   mode='compressed'  compressed storage, decompress-to-original matmul
                      (the hand-written CUDA kernel on the card, its plain
                      version on the CPU)
+  mode='slided'      paper-faithful: Psi(x) @ Phi(W)^T over gamma*K; with a
+                     quantized recipe one fused kernel quantizes, lifts and
+                     multiplies (CUDA on the card, its plain version on the
+                     CPU); the 'none' recipe runs ``slide.slided_matmul``
+                     in plain torch, as the JAX package runs it outside
+                     any Pallas kernel
   mode='masked'      not ported yet (ROADMAP A.1 / A.9, STE training)
-  mode='slided'      not ported yet (ROADMAP B.3, the fused slided kernel)
 
-Precision composes through ``recipe`` (``precision.PrecisionRecipe``):
-the per-token activation quantization stays plain torch, outside the
-kernel, as the JAX package keeps it outside Pallas.
+Precision composes through ``recipe`` (``precision.PrecisionRecipe``).
+On the compressed path the per-token activation quantization stays plain
+torch, outside the kernel, as the JAX package keeps it outside Pallas; on
+the slided path it is the fused kernel's prologue (paper Alg. 1).
 """
 from __future__ import annotations
 
@@ -26,14 +32,13 @@ from .precision import PrecisionRecipe
 
 _NOT_PORTED = {
     "masked": "ROADMAP A.9 (STE-masked training stack)",
-    "slided": "ROADMAP B.3 (fused_slided_matmul kernel, with B.4)",
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class SparsityConfig:
     pattern: tuple[int, int] | None = None  # (Z, L), e.g. (6, 8)
-    mode: str = "dense"  # dense | compressed (masked | slided not ported)
+    mode: str = "dense"  # dense | compressed | slided (masked not ported)
     act_quant: str | None = None  # legacy precision axis (None | 'int8')
     recipe: PrecisionRecipe | str | None = None
     # fuse the MLP SiLU into the gate projection's matmul epilogue
@@ -62,7 +67,7 @@ def _check_mode(cfg: SparsityConfig) -> None:
     if cfg.mode in _NOT_PORTED:
         raise NotImplementedError(
             f"mode={cfg.mode!r} is not ported yet: {_NOT_PORTED[cfg.mode]}")
-    if cfg.mode not in ("dense", "compressed"):
+    if cfg.mode not in ("dense", "compressed", "slided"):
         raise ValueError(f"unknown mode {cfg.mode}")
 
 
@@ -78,8 +83,9 @@ def init(gen: torch.Generator, k_in: int, m_out: int,
 
 def prepare(params: dict[str, Any], cfg: SparsityConfig) -> dict[str, Any]:
     """Offline phase (§4.1) + load-time compression (§4.3): prune to the
-    pattern, quantize per row per the recipe, Phi, compress (and
-    nibble-pack for 'w4').  'dense' passes through unchanged."""
+    pattern, quantize per row per the recipe, Phi, then compress
+    ('compressed') or keep the slided matrix ('slided'), nibble-packed for
+    'w4' either way.  'dense' passes through unchanged."""
     _check_mode(cfg)
     dec = cfg.decomposition()
     if cfg.mode == "dense" or dec is None:
@@ -92,8 +98,12 @@ def prepare(params: dict[str, Any], cfg: SparsityConfig) -> dict[str, Any]:
         w_store, out["s_w"] = qw.q, qw.scale
     else:
         w_store = w
-    c = comp.compress(slide.phi(w_store, dec), dec,
-                      pack_values=rec.packed_weights)
+    ws = slide.phi(w_store, dec)
+    if cfg.mode == "slided":
+        out["w_slided"] = (packer.pack_nibbles(ws) if rec.packed_weights
+                           else ws)
+        return out
+    c = comp.compress(ws, dec, pack_values=rec.packed_weights)
     out["values"], out["indices"] = c.values, c.indices
     return out
 
@@ -102,8 +112,9 @@ def apply(params: dict[str, Any], x: torch.Tensor, cfg: SparsityConfig,
           activation: str | None = None) -> torch.Tensor:
     """y = act(x @ W^T) under the configured execution path. x: [..., K].
     ``activation`` (None | 'silu' | 'gelu') rides the kernel epilogue on
-    the compressed path and is a separate elementwise op on the dense
-    one — identical semantics (``kernels.ref.epilogue``)."""
+    the quantized slided and the compressed paths and is a separate
+    elementwise op on the others — identical semantics
+    (``kernels.ref.epilogue``)."""
     from repro_torch.kernels import ops as kops  # deferred: kernels import core
     from repro_torch.kernels import ref
 
@@ -118,11 +129,24 @@ def apply(params: dict[str, Any], x: torch.Tensor, cfg: SparsityConfig,
             y = x @ params["w"].to(x.dtype).T
         return ref.apply_activation(y, activation) if activation else y
 
-    if "values" not in params:
+    if not _prepared(params, cfg):
         params = prepare(params, cfg)
+    if cfg.mode == "slided":
+        ws = params["w_slided"]
+        if rec.quantized:
+            return kops.slided_matmul_quant(x, ws, params["s_w"], dec,
+                                            recipe=rec, out_dtype=x.dtype,
+                                            activation=activation)
+        y = slide.slided_matmul(x, ws, dec).to(x.dtype)
+        return ref.apply_activation(y, activation) if activation else y
     k = params["indices"].shape[-1] * dec.source.l // dec.source.z
     c = comp.CompressedSlided(
         params["values"], params["indices"], k, dec.source.z, dec.source.l,
         dec.hw.m, dec.hw.n, packed=rec.packed_weights)
     return kops.compressed_matmul(x, c, s_w=params.get("s_w"), recipe=rec,
                                   activation=activation)
+
+
+def _prepared(params: dict[str, Any], cfg: SparsityConfig) -> bool:
+    return ("w_slided" in params) if cfg.mode == "slided" \
+        else ("values" in params)

@@ -1,7 +1,8 @@
 """Per-token dynamic quantization (paper §3.3/§4.2).
 
 Port of ``repro.core.quant``, op for op: the reciprocal form
-``x * (127 / a)``, ``round`` half-to-even, then clamp; fp8 clamps BEFORE
+``x * (127 / a)`` with every quotient an IEEE division (:func:`div`),
+``round`` half-to-even, then clamp; fp8 clamps BEFORE
 the e4m3 cast (the JAX cast gives NaN far out of range where torch
 saturates, so the clamp is part of the contract).
 """
@@ -14,6 +15,19 @@ import torch
 INT8_QMAX = 127.0
 INT4_QMAX = 7.0    # symmetric int4: [-7, 7]
 FP8_E4M3_MAX = 448.0
+
+
+def div(num, den) -> torch.Tensor:
+    """The IEEE quotient ``num / den`` (one of them a tensor), as JAX and
+    the CUDA kernels compute it.  torch turns a Python-float numerator into
+    ``reciprocal(den) * num`` and, on CUDA, a Python-float denominator into
+    ``num * (1 / den)``; both miss the quotient's last bit for many
+    inputs, so the float operand becomes a tensor here."""
+    if not isinstance(num, torch.Tensor):
+        num = torch.full_like(den, num)
+    if not isinstance(den, torch.Tensor):
+        den = torch.full_like(num, den)
+    return num / den
 
 
 class Quantized(NamedTuple):
@@ -30,16 +44,16 @@ def absmax(x: torch.Tensor) -> torch.Tensor:
 def quantize_int8(x: torch.Tensor,
                   absmax_: torch.Tensor | None = None) -> Quantized:
     a = absmax(x) if absmax_ is None else absmax_
-    r = INT8_QMAX / a
+    r = div(INT8_QMAX, a)
     q = torch.clamp(torch.round(x.to(torch.float32) * r),
                     -INT8_QMAX, INT8_QMAX)
-    return Quantized(q.to(torch.int8), a / INT8_QMAX)
+    return Quantized(q.to(torch.int8), div(a, INT8_QMAX))
 
 
 def quantize_fp8(x: torch.Tensor,
                  absmax_: torch.Tensor | None = None) -> Quantized:
     a = absmax(x) if absmax_ is None else absmax_
-    scale = a / FP8_E4M3_MAX
+    scale = div(a, FP8_E4M3_MAX)
     q = torch.clamp(x.to(torch.float32) / scale, -FP8_E4M3_MAX,
                     FP8_E4M3_MAX).to(torch.float8_e4m3fn)
     return Quantized(q, scale)
@@ -54,10 +68,10 @@ def quantize_weight_int8_rowwise(w: torch.Tensor) -> Quantized:
 def quantize_weight_int4_rowwise(w: torch.Tensor) -> Quantized:
     """Per-output-channel symmetric int4 ('w4'): UNPACKED int8 in [-7, 7]."""
     a = absmax(w)
-    r = INT4_QMAX / a
+    r = div(INT4_QMAX, a)
     q = torch.clamp(torch.round(w.to(torch.float32) * r),
                     -INT4_QMAX, INT4_QMAX)
-    return Quantized(q.to(torch.int8), a / INT4_QMAX)
+    return Quantized(q.to(torch.int8), div(a, INT4_QMAX))
 
 
 def quant_dot(q_x: torch.Tensor, q_w: torch.Tensor) -> torch.Tensor:

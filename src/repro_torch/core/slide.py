@@ -3,6 +3,8 @@
 ``phi`` (weight transformation) is the packer; ``lift`` (activation
 lifting Psi, §3.3) replicates input elements by window coverage — pure
 index remapping — so that ``w^T x == Phi(w)^T Psi(x)`` (paper Eq. 3).
+``slided_matmul`` is the paper's GPU semantics in plain torch: lifted
+activations against slided weights over the gamma*K contraction.
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import functools
 import numpy as np
 import torch
 
-from .patterns import HardwarePattern, Pattern, SlideDecomposition
+from .patterns import HardwarePattern, Pattern, SlideDecomposition, TWO_FOUR
 from . import packer
 
 
@@ -37,3 +39,17 @@ def lift(x: torch.Tensor, dec: SlideDecomposition) -> torch.Tensor:
 def phi(w: torch.Tensor, dec: SlideDecomposition) -> torch.Tensor:
     """Weight transformation Phi (Thm 1 constructive proof / Alg. 2)."""
     return packer.pack_slided(w, dec)
+
+
+def slided_matmul(x: torch.Tensor, w_slided: torch.Tensor,
+                  dec: SlideDecomposition) -> torch.Tensor:
+    """Paper-faithful execution y = Psi(x) @ Phi(W)^T.  x: [..., K];
+    w_slided: [M, gamma*K] (from ``phi``); returns [..., M] in the promoted
+    dtype of the two, as ``jnp.einsum`` does."""
+    dt = torch.promote_types(x.dtype, w_slided.dtype)
+    return lift(x, dec).to(dt) @ w_slided.to(dt).T
+
+
+def decomposition_for(pattern: Pattern) -> SlideDecomposition:
+    """Default mapping of a source pattern onto 2:4 hardware windows."""
+    return SlideDecomposition(pattern, TWO_FOUR)

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles, with its own nvcc process, into
 ``build/repro_torch/<name>-<hash>.so`` at the root of the checkout; the
-hash covers the source and the flags, so an edited source never loads a
-stale library.  The sources have a plain C interface (no PyTorch headers),
+hash covers the source, every header under ``csrc/`` and the flags, so an
+edited source or header never loads a stale library.  The sources have a plain C interface (no PyTorch headers),
 which keeps a build to seconds.  Nothing here runs at import time: the
 CPU tests import every module, and this machine may have no nvcc.
 """
@@ -20,7 +20,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("compressed_matmul", "paged_attention")
+SOURCES = ("compressed_matmul", "paged_attention", "fused_slided_matmul",
+           "fused_quant_slide", "quant_matmul")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -37,9 +38,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES, verbose: bool = False) -> dict[str, Path]:

@@ -12,10 +12,85 @@ import torch
 
 from repro_torch.core import precision
 from repro_torch.core.compressed import CompressedSlided
+from repro_torch.core.patterns import SlideDecomposition
 
 from . import ref
+from . import fused_quant_slide as _fqs
+from . import fused_slide_matmul as _fsm
 from . import paged_attention as _pa
+from . import quant_matmul as _qmm
 from . import slide_matmul as _smm
+
+
+def _family(dec: SlideDecomposition) -> int:
+    n = dec.source.family_n
+    if n is None or dec.hw.m != 2 or dec.hw.n != 4:
+        raise ValueError("the kernel supports the (2N-2):2N -> 2:4 family")
+    return n
+
+
+def fused_quant_slide(x: torch.Tensor, dec: SlideDecomposition, recipe=None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token quantization + lifting Psi (paper Alg. 1).
+    x: [..., K] float -> (q [..., gamma*K] int8 | e4m3, scale [..., 1]
+    fp32).  ``recipe`` selects the quantizer (default: int8)."""
+    rec = precision.resolve(recipe if recipe is not None else "int8")
+    if not rec.quantized:
+        raise ValueError(f"recipe {rec.name!r} has no activation quantizer"
+                         " to fuse the lift into")
+    n = _family(dec)
+    lead = tuple(x.shape[:-1])
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if x2.is_cuda:
+        q, s = _fqs.fused_quant_slide_cuda(x2, n_fam=n, fp8=rec.act == "fp8")
+    else:
+        q, s = ref.fused_quant_slide(x2, dec, fp8=rec.act == "fp8")
+    return q.reshape(lead + (q.shape[-1],)), s.reshape(lead + (1,))
+
+
+def quant_matmul(q_x: torch.Tensor, s_x: torch.Tensor, q_w: torch.Tensor,
+                 s_w: torch.Tensor, out_dtype=torch.float32,
+                 bias: torch.Tensor | None = None,
+                 activation: str | None = None) -> torch.Tensor:
+    """Dense quantized GEMM + dequant epilogue (the quantized baseline).
+    q_x: [..., K] int8 | e4m3; s_x: [..., 1] fp32; q_w: [M, K]; s_w:
+    [M, 1] fp32.  Returns [..., M] in ``out_dtype``."""
+    lead = tuple(q_x.shape[:-1])
+    x2 = q_x.reshape(-1, q_x.shape[-1]).contiguous()
+    s2 = s_x.reshape(-1, 1).contiguous()
+    if x2.is_cuda:
+        y = _qmm.quant_matmul_cuda(x2, s2, q_w, s_w, bias,
+                                   out_dtype=out_dtype, activation=activation)
+    else:
+        y = ref.quant_matmul(x2, s2, q_w, s_w, out_dtype, bias, activation)
+    return y.reshape(lead + (y.shape[-1],))
+
+
+def slided_matmul_quant(x: torch.Tensor, w_slided_q: torch.Tensor,
+                        s_w: torch.Tensor, dec: SlideDecomposition,
+                        recipe="int8", out_dtype=None,
+                        bias: torch.Tensor | None = None,
+                        activation: str | None = None) -> torch.Tensor:
+    """The paper's GPU path as ONE kernel: per-token quantization and
+    lifting in the GEMM prologue, so the lifted gamma*K activations never
+    reach device memory.  int8 or e4m3 activations against int8 or
+    nibble-packed int4 slided weights [M, gamma*K (/2 packed)]."""
+    rec = precision.resolve(recipe)
+    if not rec.quantized:
+        raise ValueError(f"recipe {rec.name!r} has no quantized GEMM form")
+    n = _family(dec)
+    out_dtype = out_dtype or rec.out_dtype(x.dtype)
+    lead = tuple(x.shape[:-1])
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if x2.is_cuda:
+        y = _fsm.fused_slided_matmul_cuda(
+            x2, w_slided_q, s_w, bias, n_fam=n, act=rec.act,
+            packed=rec.packed_weights, out_dtype=out_dtype,
+            activation=activation)
+    else:
+        y = ref.slided_matmul_quant(x2, w_slided_q, s_w, dec, rec, out_dtype,
+                                    bias=bias, activation=activation)
+    return y.reshape(lead + (y.shape[-1],))
 
 
 def compressed_matmul(x: torch.Tensor, c: CompressedSlided,
@@ -31,9 +106,7 @@ def compressed_matmul(x: torch.Tensor, c: CompressedSlided,
     out_dtype = out_dtype or rec.out_dtype(x.dtype)
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    n = c.decomposition.source.family_n
-    if n is None or c.m != 2 or c.n != 4:
-        raise ValueError("the kernel supports the (2N-2):2N -> 2:4 family")
+    n = _family(c.decomposition)
     if rec.quantized:
         if s_w is None:
             raise ValueError(f"recipe {rec.name!r} needs s_w row scales")

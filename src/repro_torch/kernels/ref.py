@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the port's kernels.
 
 They define the semantics the CUDA kernels must match, mirror the JAX
-oracles (``repro.kernels.ref`` and ``paged_attention._flash_ref``) op for
-op, and are the execution path for tensors on the CPU.  On the card they
+oracles (``repro.kernels.ref``, ``paged_attention._flash_ref`` and the
+prologue helpers of ``fused_quant_slide``) op for op, and are the
+execution path for tensors on the CPU.  On the card they
 serve only as the comparison in tests and ``chip_smoke.py``: the
 dispatchers in ``ops`` never route a CUDA tensor here.
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import compressed as comp, precision, quant
+from repro_torch.core import compressed as comp, packer, precision, quant
 
 NEG_INF = -1e30
 
@@ -71,6 +72,80 @@ def compressed_matmul_dequant(q_x: torch.Tensor, s_x: torch.Tensor,
     acc = quant.quant_dot(q_x, comp.decompress_original(c))
     y = acc.to(torch.float32) * s_x * s_w[:, 0][None, :]
     return epilogue(y, bias, activation).to(out_dtype)
+
+
+def lift_pairs(q: torch.Tensor, n_fam: int) -> torch.Tensor:
+    """Psi for (2N-2):2N -> 2:4 as the fused kernels realize it: window j
+    of each 2N-group covers source pairs (j, j+1), so lifted word (g, j)
+    is the four source columns starting at 2N*g + 2j.  q: [R, K] ->
+    [R, gamma*K].  Moves bytes only (fp8 goes through a uint8 view)."""
+    r, k = q.shape
+    g = k // (2 * n_fam)
+    raw = q.view(torch.uint8) if q.dtype == torch.float8_e4m3fn else q
+    pairs = raw.reshape(r, g, n_fam, 2)
+    lifted = torch.cat([pairs[:, :, :n_fam - 1], pairs[:, :, 1:]], dim=-1)
+    lifted = lifted.reshape(r, g * (n_fam - 1) * 4)
+    return lifted.view(q.dtype) if raw is not q else lifted
+
+
+def quantize_rows(x: torch.Tensor, fp8: bool,
+                  absmax: torch.Tensor | None = None) -> quant.Quantized:
+    """The per-row quantizer of the fused kernels' prologue: exactly
+    ``quant.quantize_int8`` / ``quant.quantize_fp8`` (IEEE ``127 / a``,
+    round half to even; e4m3 clamped to +-448 before the cast)."""
+    return (quant.quantize_fp8(x, absmax) if fp8
+            else quant.quantize_int8(x, absmax))
+
+
+def fused_quant_slide(x: torch.Tensor, dec, fp8: bool = False,
+                      absmax: torch.Tensor | None = None):
+    """Paper Alg. 1: per-row dynamic quantization + lifting.  x: [R, K] ->
+    (q_lifted int8 | e4m3 [R, gamma*K], scale fp32 [R, 1])."""
+    n = dec.source.family_n
+    if n is None or dec.hw.m != 2 or dec.hw.n != 4:
+        raise ValueError("the kernel supports the (2N-2):2N -> 2:4 family")
+    qx = quantize_rows(x, fp8, absmax)
+    return lift_pairs(qx.q, n), qx.scale
+
+
+def quant_matmul(q_x: torch.Tensor, s_x: torch.Tensor, q_w: torch.Tensor,
+                 s_w: torch.Tensor, out_dtype=torch.float32, bias=None,
+                 activation: str | None = None) -> torch.Tensor:
+    """Quantized GEMM + dequant epilogue ``(q_x @ q_w^T) * s_x * s_w``,
+    then bias and activation: int32-exact for integer operands, fp32 with
+    any e4m3 operand.  q_x: [R, K]; s_x: [R, 1]; q_w: [M, K]; s_w: [M, 1]."""
+    acc = quant.quant_dot(q_x, q_w)
+    y = acc.to(torch.float32) * s_x * s_w[:, 0][None, :]
+    return epilogue(y, bias, activation).to(out_dtype)
+
+
+def slided_matmul_quant(x: torch.Tensor, w_slided_q: torch.Tensor,
+                        s_w: torch.Tensor, dec, recipe, out_dtype=None,
+                        bias=None, activation: str | None = None,
+                        act_absmax: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """Paper-faithful quantized semantics: ``(Psi(q(x)) @ Phi(q(W))^T) *
+    s_x * s_w`` over the gamma*K contraction, int8 or e4m3 activations
+    against int8 or nibble-packed int4 slided weights."""
+    rec = precision.resolve(recipe)
+    q_lift, s_x = fused_quant_slide(x, dec, fp8=rec.act == "fp8",
+                                    absmax=act_absmax)
+    return slided_matmul_dequant(q_lift, s_x, w_slided_q, s_w,
+                                 out_dtype or x.dtype, bias, activation,
+                                 packed=rec.packed_weights)
+
+
+def slided_matmul_dequant(q_lift: torch.Tensor, s_x: torch.Tensor,
+                          w_slided: torch.Tensor, s_w: torch.Tensor,
+                          out_dtype, bias=None,
+                          activation: str | None = None,
+                          packed: bool = False) -> torch.Tensor:
+    """What the fused CUDA kernel computes once its prologue has quantized
+    and lifted x: unpack the 'w4' nibbles, then :func:`quant_matmul`."""
+    if packed:
+        w_slided = packer.unpack_nibbles(w_slided, q_lift.shape[-1])
+    return quant_matmul(q_lift, s_x, w_slided, s_w, out_dtype, bias,
+                        activation)
 
 
 def flash_paged(q: torch.Tensor, pool: dict, page_table: torch.Tensor,

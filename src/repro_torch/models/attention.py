@@ -17,7 +17,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import linear as sl
+from repro_torch import resolve_device
+from repro_torch.core import linear as sl, quant
 from repro_torch.core.linear import SparsityConfig
 from . import layers
 
@@ -149,8 +150,9 @@ def _quant_kv(x):
     """[..., hd] -> int8 + per-(token, head) fp32 scale [..., 1]."""
     a = torch.clamp_min(x.to(torch.float32).abs().amax(-1, keepdim=True),
                         1e-8)
-    q = torch.clamp(torch.round(x.to(torch.float32) * (127.0 / a)), -127, 127)
-    return q.to(torch.int8), a / 127.0
+    q = torch.clamp(torch.round(x.to(torch.float32) * quant.div(127.0, a)),
+                    -127, 127)
+    return q.to(torch.int8), quant.div(a, 127.0)
 
 
 def _dequant_kv(q, scale, dtype):
@@ -197,8 +199,9 @@ def apply(params, spec: AttnSpec, x, positions, sp_cfg: SparsityConfig,
 
 
 def make_cache(spec: AttnSpec, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cpu"):
+               dtype=torch.bfloat16, device=None):
     """dtype=int8 -> quantized cache with per-(token, kv-head) fp32 scales."""
+    device = resolve_device(device)
     shape = (batch, max_len, spec.num_kv_heads, spec.head_dim)
     cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -231,9 +234,10 @@ def build_prefill_cache(params, spec: AttnSpec, x, positions,
 
 # ------------------------------------------------------------- paged KV
 def make_paged_pool(spec: AttnSpec, num_pages: int, page_size: int,
-                    dtype=torch.bfloat16, device="cpu"):
+                    dtype=torch.bfloat16, device=None):
     """Physical page pool [num_pages, page_size, KVH, hd] shared by every
     sequence; int8 pages carry per-(token, kv-head) fp32 scales."""
+    device = resolve_device(device)
     shape = (num_pages, page_size, spec.num_kv_heads, spec.head_dim)
     pool = {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -5,12 +5,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import linear as sl
 from repro_torch.core.linear import SparsityConfig
 
 
-def rmsnorm_init(d: int, device="cpu"):
-    return {"g": torch.ones((d,), dtype=torch.float32, device=device)}
+def rmsnorm_init(d: int, device=None):
+    return {"g": torch.ones((d,), dtype=torch.float32,
+                            device=resolve_device(device))}
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -20,9 +22,10 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (x * params["g"]).to(dt)
 
 
-def rope_frequencies(head_dim: int, theta: float, device="cpu"):
+def rope_frequencies(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
+                                         device=resolve_device(device))
+                            / head_dim))
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

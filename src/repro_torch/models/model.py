@@ -34,7 +34,7 @@ def serve_step(params, cfg: ModelConfig, token, cache, kv_len):
 
 
 def make_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
-                     max_batch: int, device="cpu"):
+                     max_batch: int, device=None):
     _decoder_only(cfg)
     return transformer.make_paged_cache(cfg, num_pages, page_size, max_batch,
                                         device)

@@ -13,6 +13,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import linear as sl
 from . import attention, layers
@@ -133,12 +134,13 @@ def serve_step(params, cfg: ModelConfig, token, cache, kv_len):
 
 # ------------------------------------------------------- paged inference
 def make_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
-                     max_batch: int, device="cpu"):
+                     max_batch: int, device=None):
     """Per unit, per attention layer, a physical page pool
     [num_pages, page_size, KVH, hd]; one logical page id addresses the same
     slot in every layer."""
     _check_supported(cfg)
     kv = getattr(torch, cfg.kv_cache_dtype)
+    device = resolve_device(device)
     return [{f"layer_{i}": attention.make_paged_pool(
                 attn_spec(cfg, kind), num_pages, page_size, kv, device)
              for i, kind in enumerate(cfg.unit_pattern)}

@@ -178,7 +178,8 @@ class ServeEngine:
 
     Two fixed-shape steps: a [1, prefill_chunk] prompt-chunk step and a
     [max_batch] decode step.  Every linear goes through ``linear.apply``
-    (the compressed-matmul kernel on the card) and, with
+    (on the card the compressed-matmul kernel, or in ``mode="slided"`` the
+    fused slided matmul) and, with
     ``sparsity.fused_attention``, every paged attention step through the
     paged-attention kernel.  Greedy sampling (first maximal index, as
     ``jnp.argmax``) runs on the device; the host fetches the ids only.

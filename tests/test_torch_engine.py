@@ -1,11 +1,15 @@
 """The port's serving engine held against the JAX engine.
 
 * Token streams: the port's ``ServeEngine`` on the CPU (fused paged
-  attention's plain version, every linear through the compressed plain
-  version) and the JAX ``ServeEngine`` (``fused_attention=True``, its jnp
-  flash mirror) serve the same weights and the same traffic — staggered
-  arrivals plus one request that joins mid-flight — and must emit IDENTICAL
-  greedy streams for the ``none`` and ``int8`` recipes.
+  attention's plain version, every linear through the compressed or the
+  slided plain version) and the JAX ``ServeEngine`` (``fused_attention=
+  True``, its jnp flash mirror) serve the same weights and the same
+  traffic — staggered arrivals plus one request that joins mid-flight —
+  and must emit IDENTICAL greedy streams for both modes and the ``none``
+  and ``int8`` recipes.
+* Slided int8 == compressed int8 in the port, streams and first-token
+  logits bit for bit (the gate chip_smoke holds on the card).
+* The model entry points that allocate run on CUDA unless given a device.
 * Scheduler: the port's verbatim copy makes the same decisions as
   ``repro.runtime.scheduler`` on the same submits.
 """
@@ -14,6 +18,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import registry as jreg
 from repro.core import linear as jlin
@@ -24,6 +29,8 @@ from repro.runtime import serve_loop as jserve
 from repro_torch.configs import registry as treg
 from repro_torch.convert import params_from_jax
 from repro_torch.core import linear as tlin
+from repro_torch.models import attention as tattn, layers as tlayers
+from repro_torch.models import model as TM, transformer as ttf
 from repro_torch.runtime import kv_cache as tkv, scheduler as tsch
 from repro_torch.runtime import serve_loop as tserve
 
@@ -61,18 +68,23 @@ def jax_tree():
                                   JM.init(cfg, jax.random.PRNGKey(0)))
 
 
+def _tcfg(mode, recipe):
+    return dataclasses.replace(treg.smoke_config(ARCH),
+                               sparsity=tlin.SparsityConfig(
+                                   pattern=(6, 8), mode=mode, recipe=recipe,
+                                   fused_attention=True))
+
+
 @pytest.mark.parametrize("recipe", ["none", "int8"])
-def test_engine_streams_match_jax_engine(jax_tree, recipe):
+@pytest.mark.parametrize("mode", ["compressed", "slided"])
+def test_engine_streams_match_jax_engine(jax_tree, mode, recipe):
     prompts, late = _traffic()
     jcfg = dataclasses.replace(jreg.smoke_config(ARCH),
                                sparsity=jlin.SparsityConfig(
-                                   pattern=(6, 8), mode="compressed",
+                                   pattern=(6, 8), mode=mode,
                                    recipe=recipe, use_pallas=False,
                                    fused_attention=True))
-    tcfg = dataclasses.replace(treg.smoke_config(ARCH),
-                               sparsity=tlin.SparsityConfig(
-                                   pattern=(6, 8), mode="compressed",
-                                   recipe=recipe, fused_attention=True))
+    tcfg = _tcfg(mode, recipe)
     jeng = jserve.ServeEngine(jserve.pack_params(jax_tree, jcfg), jcfg,
                               jserve.EngineConfig(**ECFG))
     want = _serve(jeng, prompts, late)
@@ -86,6 +98,55 @@ def test_engine_streams_match_jax_engine(jax_tree, recipe):
     assert got == want
     assert teng.stats.decode_tokens == jeng.stats.decode_tokens
     assert teng.stats.precision == recipe
+
+
+def test_slided_engine_equals_compressed_engine(jax_tree):
+    prompts, late = _traffic()
+    engines = {}
+    for mode in ("compressed", "slided"):
+        cfg = _tcfg(mode, "int8")
+        params = tserve.pack_params(params_from_jax(jax_tree, cfg), cfg)
+        leaf = params["units"][0]["layer_0"]["ffn"]["w_down"]
+        assert set(leaf) == ({"w_slided", "s_w"} if mode == "slided"
+                             else {"values", "indices", "s_w"})
+        engines[mode] = tserve.ServeEngine(params, cfg,
+                                           tserve.EngineConfig(**ECFG),
+                                           device="cpu")
+    streams = {m: _serve(e, prompts, late) for m, e in engines.items()}
+    assert streams["slided"] == streams["compressed"]
+    first = {m: e.first_logits for m, e in engines.items()}
+    assert set(first["slided"]) == set(first["compressed"]) == set(
+        streams["slided"])
+    for rid, logits in first["compressed"].items():
+        assert torch.equal(first["slided"][rid], logits)
+
+
+@pytest.mark.parametrize("fn", [
+    "model.make_paged_cache", "transformer.make_paged_cache",
+    "attention.make_cache", "attention.make_paged_pool",
+    "layers.rmsnorm_init", "layers.rope_frequencies"])
+def test_allocating_entry_points_default_to_cuda(fn):
+    cfg = treg.smoke_config(ARCH)
+    spec = ttf.attn_spec(cfg, "swa")
+    call = {
+        "model.make_paged_cache": lambda **kw: TM.make_paged_cache(
+            cfg, 4, 2, 1, **kw)[0]["layer_0"]["k"],
+        "transformer.make_paged_cache": lambda **kw: ttf.make_paged_cache(
+            cfg, 4, 2, 1, **kw)[0]["layer_0"]["v"],
+        "attention.make_cache": lambda **kw: tattn.make_cache(
+            spec, 1, 4, **kw)["k"],
+        "attention.make_paged_pool": lambda **kw: tattn.make_paged_pool(
+            spec, 4, 2, **kw)["k"],
+        "layers.rmsnorm_init": lambda **kw: tlayers.rmsnorm_init(8, **kw)["g"],
+        "layers.rope_frequencies": lambda **kw: tlayers.rope_frequencies(
+            8, 1e4, **kw),
+    }[fn]
+    assert call(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
 
 
 def _decisions(mod_sch, mod_kv, seed):

@@ -32,6 +32,9 @@ from repro_torch.core.compressed import CompressedSlided as TCompressed
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import slide_matmul as tsm
+from repro_torch.kernels import fused_quant_slide as tfqs
+from repro_torch.kernels import fused_slide_matmul as tfsm
+from repro_torch.kernels import quant_matmul as tqmm
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -109,7 +112,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tpa.paged_attention_cuda(q, pool, torch.zeros((1, 2), dtype=torch.int32),
                                  torch.ones((1,), dtype=torch.int32), None)
+    xf = torch.zeros((2, 8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfsm.fused_slided_matmul_cuda(xf, torch.zeros((4, 6), dtype=torch.int8),
+                                      torch.ones((4, 1)), n_fam=4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfqs.fused_quant_slide_cuda(xf, n_fam=4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tqmm.quant_matmul_cuda(x, torch.ones((2, 1)),
+                               torch.zeros((4, 8), dtype=torch.int8),
+                               torch.ones((4, 1)))
     assert tsm.launch_count() == 0 and tpa.launch_count() == 0
+    assert tfsm.launch_count() == tfqs.launch_count() == \
+        tqmm.launch_count() == 0
 
 
 # ---------------------------------------------------------------- B2
