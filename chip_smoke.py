@@ -4,20 +4,26 @@ root of a checkout, on a machine with one NVIDIA H100.
 
 Phases (any failed check exits nonzero):
 1. device and build: the card's name and power limit, then the five CUDA
-   kernels built from ``src/repro_torch/csrc`` (one nvcc each, together);
+   kernels built from ``src/repro_torch/csrc`` (one nvcc each, together),
+   with ptxas' registers, shared memory and spills of every B1 and B2
+   instance and, where cuobjdump exists, their HMMA/IMMA counts;
 2. B1, the compressed-matmul kernel, against its plain version at every
    h2o-danube-3-4b projection shape x R in {1, 4, prefill_chunk} x
-   recipes int8, w4 (bit-equal) and fp8, none (bf16; tolerance below);
+   recipes int8, w4 (bit-equal) and fp8, none (bf16; tolerance below),
+   kernel and bf16 ``torch.matmul`` timed in turns; R in {5, 16, 17}
+   across the decode/prefill switch, and N = 2, 3 with ragged M and K;
 2b. B3 (fused quant+lift+GEMM), B4 (quant+lift) and B5 (dense quantized
    GEMM) against their plain versions at the same shapes x R: B3 int8/w4,
    B4 and B5 int8 bit-equal, fp8 within two bf16 ulps of max|plain|; the
    pipeline B4 -> B5 bit-equal to B3 for int8; the same checks at
    N = 2, 3 with ragged shapes and f32 inputs; B3 with bias + SiLU;
-3. B2, the paged-attention kernel, against its plain version at full
-   width (H=32, KVH=8, hd=120, page 16): decode B=4 up to ~1000 tokens and
-   a 128-lane prefill chunk, window off and shorter than kv_len, bf16 and
-   int8 pools, fp32 queries and the main path's bf16 queries (tolerances
-   below);
+3. B2, the paged-attention kernel, against its split plain version at the
+   kernel's own split count, at full width (H=32, KVH=8, hd=120, page
+   16): decode B=4 up to ~1000 tokens, a 128-lane prefill chunk, and the
+   split edges (rows of 1, 15, 16, 17 tokens beside one of ~4000), window
+   off and 300, bf16 and int8 pools, fp32 queries and the main path's
+   bf16 queries (tolerances below), each bf16 call launched twice and
+   held bit-identical; kernel and SDPA timed in turns;
 4. the engine: full 24-layer h2o-danube-3-4b, 6:8 compressed, int8
    recipe, bf16 activations and KV pages, fused paged attention, serving
    4 staggered requests; both kernels' launch counts must rise during
@@ -35,6 +41,7 @@ It imports neither JAX nor the JAX package, and prints every table it
 measures on standard output.
 """
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -80,11 +87,12 @@ class Timer:
         self.flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
                                  device="cuda")
 
-    def __call__(self, fn, iters=10, warmup=2):
+    def samples(self, fn, iters=10, warmup=2):
+        """The device time of each of ``iters`` calls, in ms."""
         torch = self.torch
         for _ in range(warmup):
             fn()
-        total = 0.0
+        out = []
         for _ in range(iters):
             self.flush.zero_()
             a = torch.cuda.Event(enable_timing=True)
@@ -93,8 +101,22 @@ class Timer:
             fn()
             b.record()
             b.synchronize()
-            total += a.elapsed_time(b)
-        return total / iters
+            out.append(a.elapsed_time(b))
+        return out
+
+    def __call__(self, fn, iters=10, warmup=2):
+        return sum(self.samples(fn, iters, warmup)) / iters
+
+    def turns(self, kernel, library, iters=10):
+        """Kernel and library timed in turns in one call (kernel, library,
+        library, kernel), so drift of the card between them cancels; the
+        median call time of each, in ms."""
+        import statistics
+        k = self.samples(kernel, iters)
+        lib = self.samples(library, iters)
+        lib += self.samples(library, iters)
+        k += self.samples(kernel, iters)
+        return statistics.median(k), statistics.median(lib)
 
 
 def bound(bytes_moved: float, ops: float, kind: str):
@@ -173,9 +195,8 @@ def phase_b1(torch, timer):
                     assert err <= 2 ** -7 * scale, \
                         f"B1 {recipe} {m}x{k} R={r}: err {err} > 2^-7*{scale}"
                 max_err = max(max_err, err)
-                t_k = timer(kern)
+                t_k, t_l = timer.turns(kern, library)
                 t_p = timer(plain, iters=3, warmup=1)
-                t_l = timer(library)
                 w_bytes = (c.values.numel() * c.values.element_size()
                            + c.indices.numel()
                            + (4 * m if rec.quantized else 0))
@@ -194,6 +215,49 @@ def phase_b1(torch, timer):
                     step["ops_s"] += n * ops / PEAK_OPS["int8"]
             del w, p, c, w_dense
     torch.cuda.empty_cache()
+
+    # both sides of the decode/prefill switch (R <= DECODE_MAX_R) on one
+    # shape, and the other families with ragged M and K (K = 120: position
+    # rows not 16-byte multiples, so the byte-wise paths run; M not a
+    # multiple of the 4- or 64-row blocks), R across both instances
+    cases = 0
+    for z, l, shapes, rs in (
+            (6, 8, [(3840, 3840)], (5, 16, 17)),
+            (2, 4, [(37, 120), (100, 48), (960, 3840)], (1, 5, 17, 40)),
+            (4, 6, [(37, 120), (100, 48), (960, 3840)], (1, 5, 17, 40))):
+        for recipe in ("int8", "w4", "fp8"):
+            cfg = sl.SparsityConfig(pattern=(z, l), mode="compressed",
+                                    recipe=recipe)
+            rec = cfg.recipe
+            for m, k in shapes:
+                w = torch.randn((m, k), generator=gen, device="cuda")
+                p = sl.prepare({"w": w}, cfg)
+                c = CompressedSlided(p["values"], p["indices"], k, z, l, 2, 4,
+                                     packed=rec.packed_weights)
+                for r in rs:
+                    x = torch.randn((r, k), generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+                    qx = rec.quantize_act(x)
+                    y = smm.compressed_matmul_cuda(
+                        qx.q, c.values, c.indices, qx.scale, p["s_w"],
+                        n_fam=l // 2, packed=c.packed,
+                        out_dtype=torch.bfloat16)
+                    y_ref = ref.compressed_matmul_dequant(
+                        qx.q, qx.scale, c, p["s_w"], torch.bfloat16)
+                    err = (y.float() - y_ref.float()).abs().max().item()
+                    if recipe in ("int8", "w4"):
+                        assert torch.equal(y, y_ref), \
+                            f"B1 {z}:{l} {recipe} {m}x{k} R={r}: not " \
+                            f"bit-equal ({err})"
+                    else:
+                        scale = y_ref.float().abs().max().item()
+                        assert err <= 2 ** -7 * scale, \
+                            f"B1 {z}:{l} {recipe} {m}x{k} R={r}: err {err}"
+                    max_err = max(max_err, err)
+                    cases += 1
+    log(f"B1 R across the decode/prefill switch (R <= "
+        f"{smm.DECODE_MAX_R} decodes) and N = 2, 3 with ragged M, K: "
+        f"{cases} cases held")
     step["bound_ms"] = max(step["bytes_s"], step["ops_s"]) * 1e3
     step["bound_by"] = ("bytes" if step["bytes_s"] >= step["ops_s"]
                         else "operations")
@@ -409,18 +473,31 @@ def phase_b2(torch, timer):
     import torch.nn.functional as F
     from repro_torch.kernels import ref, paged_attention as pa
 
-    log(f"== B2 paged_attention vs plain (fp32 q: max abs err <= {B2_TOL}; "
-        "bf16 q, the main path's instance: within 2^-7 of max|plain|) ==")
-    log("case pool window | kernel_ms plain_ms library_ms bound_ms bound_by "
-        "| max_abs_err fp32 bf16")
+    log(f"== B2 paged_attention vs its split plain version at the kernel's "
+        f"own split count S (fp32 q: max abs err <= {B2_TOL}; bf16 q, the "
+        "main path's instance: within 2^-7 of max|plain|; bf16 q twice: "
+        "bit-identical) ==")
+    log("case pool window S | kernel_ms plain_ms library_ms bound_ms "
+        "bound_by | max_abs_err fp32 bf16")
     gen = torch.Generator(device="cuda").manual_seed(2)
     h, kvh, hd, ps, num_pages = 32, 8, 120, 16, 320
     max_err, main = 0.0, None
-    cases = [("decode", [1000, 517, 77, 260], 1),
-             ("prefill", [257], PREFILL_CHUNK)]
-    for name, kv_len, lanes in cases:
+    # decode at the main path's batch, a 128-lane prefill chunk, and the
+    # split edges: rows of 1, 15, 16 and 17 tokens (one page and its
+    # edges) beside one of ~4000, whose table leaves the short rows' splits
+    # past their tails unallocated; window 300 leaves whole splits of the
+    # long row below every query's window
+    cases = [("decode", [1000, 517, 77, 260], 1, True),
+             ("prefill", [257], PREFILL_CHUNK, True),
+             ("edges", [1, 15, 16, 17, 3999], 1, False)]
+    for name, kv_len, lanes, timed in cases:
         b = len(kv_len)
         maxp = -(-(max(kv_len) + lanes - 1) // ps) + 2
+        splits = pa.splits_for(b, kvh, maxp, ps, lanes, h // kvh)
+        if name == "decode":
+            assert splits > 1, f"B2 decode runs one split ({splits})"
+            log(f"B2 decode grid: B x KVH x S = {b} x {kvh} x {splits} "
+                "attend blocks, then the merge")
         perm = torch.randperm(num_pages - 1, generator=gen,
                               device="cuda") + 1
         table = torch.zeros((b, maxp), dtype=torch.int32, device="cuda")
@@ -449,9 +526,12 @@ def phase_b2(torch, timer):
                                 device="cuda")
                 qb = q.to(torch.bfloat16)  # the main path's instance
                 y = pa.paged_attention_cuda(q, pool, table, kvl, window)
-                y_ref = ref.flash_paged(q, pool, table, kvl, window, 8)
+                y_ref = ref.flash_paged_split(q, pool, table, kvl, window,
+                                              splits)
                 yb = pa.paged_attention_cuda(qb, pool, table, kvl, window)
-                yb_ref = ref.flash_paged(qb, pool, table, kvl, window, 8)
+                yb2 = pa.paged_attention_cuda(qb, pool, table, kvl, window)
+                yb_ref = ref.flash_paged_split(qb, pool, table, kvl, window,
+                                               splits)
                 torch.cuda.synchronize()
                 err32 = (y - y_ref).abs().max().item()
                 assert err32 <= B2_TOL, \
@@ -461,12 +541,13 @@ def phase_b2(torch, timer):
                 assert err <= 2 ** -7 * scale, \
                     f"B2 {name} {pool_kind} {window} bf16: {err} > " \
                     f"2^-7*{scale}"
+                assert torch.equal(yb, yb2), \
+                    f"B2 {name} {pool_kind} {window}: two launches differ"
                 max_err = max(max_err, err32, err)
-                t_k = timer(lambda: pa.paged_attention_cuda(
-                    qb, pool, table, kvl, window))
-                t_p = timer(lambda: ref.flash_paged(qb, pool, table, kvl,
-                                                    window, 8),
-                            iters=3, warmup=1)
+                if not timed:
+                    log(f"{name} {pool_kind} {window} {splits} | - | "
+                        f"{err32:.3g} {err:.3g}")
+                    continue
                 # yardstick: SDPA over K/V gathered beforehand (bf16)
                 kg = pool["k"][table.long()].reshape(b, -1, kvh, hd)
                 vg = pool["v"][table.long()].reshape(b, -1, kvh, hd)
@@ -484,8 +565,13 @@ def phase_b2(torch, timer):
                     mask &= pos[None, None, :] >= row_len[:, :, None] - window
                 mask = mask[:, None]
                 qt = qb.transpose(1, 2)
-                t_l = timer(lambda: F.scaled_dot_product_attention(
-                    qt, kg, vg, attn_mask=mask, enable_gqa=True))
+                t_k, t_l = timer.turns(
+                    lambda: pa.paged_attention_cuda(qb, pool, table, kvl,
+                                                    window),
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kg, vg, attn_mask=mask, enable_gqa=True))
+                t_p = timer(lambda: ref.flash_paged_split(
+                    qb, pool, table, kvl, window, splits), iters=3, warmup=1)
                 seen = 0
                 for n_tok in kv_len:
                     for lane in range(lanes):
@@ -502,11 +588,13 @@ def phase_b2(torch, timer):
                           + 2 * q.numel() * 2 + table.numel() * 4 + 4 * b)
                 ops = 4 * seen * (h // kvh) * kvh * hd
                 b_ms, b_by = bound(nbytes, ops, "bf16")
-                log(f"{name} {pool_kind} {window} | {t_k:.4f} {t_p:.4f} "
-                    f"{t_l:.4f} {b_ms:.4f} {b_by} | {err32:.3g} {err:.3g}")
+                log(f"{name} {pool_kind} {window} {splits} | {t_k:.4f} "
+                    f"{t_p:.4f} {t_l:.4f} {b_ms:.4f} {b_by} | {err32:.3g} "
+                    f"{err:.3g}")
                 if name == "decode" and pool_kind == "bf16" and window is None:
                     main = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
                             "bound_ms": b_ms, "bound_by": b_by}
+        del pool
     torch.cuda.empty_cache()
     # per decode step: the model's 24 attention layers at this shape
     step = {k_: (24 * v if k_.endswith("ms") else v) for k_, v in main.items()}
@@ -735,6 +823,27 @@ def main() -> int:
                   if "spill" in line and " 0 bytes spill stores" not in line]
         log(f"ptxas {name}: {len(regs)} kernels, max {max(regs, default=0)} "
             f"registers, {len(spills)} with spills")
+        if name in ("compressed_matmul", "paged_attention"):
+            # the redesigned kernels: every instance's registers, shared
+            # memory and spills as ptxas reports them
+            entry = ""
+            for line in text.splitlines():
+                if "Compiling entry function" in line:
+                    entry = line.split("'")[1] if "'" in line else line
+                elif "Used" in line or "spill" in line:
+                    log(f"  ptxas {name} {entry[:90]}: {line.strip()}")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(cuobjdump).exists():
+        # the tensor-core instances exist: mma.sync in the SASS of B1 (IMMA,
+        # int8 prefill) and B2 (HMMA, bf16 prefill chunk)
+        for name in ("compressed_matmul", "paged_attention"):
+            sass = subprocess.run([cuobjdump, "-sass", str(libs[name])],
+                                  capture_output=True, text=True,
+                                  timeout=120).stdout
+            log(f"SASS {name}: {sass.count('HMMA')} HMMA, "
+                f"{sass.count('IMMA')} IMMA instructions")
+    else:
+        log("SASS: cuobjdump not found, tensor-core instructions not counted")
 
     timer = Timer(torch)
     b1_err, b1 = phase_b1(torch, timer)

@@ -5,7 +5,9 @@ numpy (``jax.tree_util.tree_map(np.asarray, tree)``) and returns the
 port's parameter tree: the same nested dicts, with the JAX stack of
 scanned units ``units[leaf] : [U, ...]`` split into a list of U unit
 dicts.  Nothing here imports JAX; numpy arrays of the ml_dtypes types
-(bfloat16, float8_e4m3fn) are reinterpreted bit for bit.
+(bfloat16, float8_e4m3fn) are reinterpreted bit for bit.  Like every
+entry point of the port, both functions put their tensors on the card
+unless the caller names a device (``resolve_device``).
 """
 from __future__ import annotations
 
@@ -14,12 +16,15 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 _BITCAST = {"bfloat16": (np.int16, torch.bfloat16),
             "float8_e4m3fn": (np.int8, torch.float8_e4m3fn)}
 
 
-def to_torch(a, device="cpu") -> torch.Tensor:
+def to_torch(a, device=None) -> torch.Tensor:
     """numpy (or array-like) -> torch tensor with identical bits."""
+    device = resolve_device(device)
     a = np.asarray(a)
     if a.dtype.name in _BITCAST:
         raw, dt = _BITCAST[a.dtype.name]
@@ -34,8 +39,9 @@ def _map(node, fn):
     return fn(node)
 
 
-def params_from_jax(tree: dict[str, Any], cfg, device="cpu") -> dict[str, Any]:
+def params_from_jax(tree: dict[str, Any], cfg, device=None) -> dict[str, Any]:
     """JAX ``model.init`` tree (as numpy) -> the port's parameters."""
+    device = resolve_device(device)
     out = {k: _map(v, lambda a: to_torch(a, device))
            for k, v in tree.items() if k != "units"}
     out["units"] = [_map(tree["units"], lambda a, u=u: to_torch(a[u], device))

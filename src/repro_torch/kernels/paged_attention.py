@@ -1,13 +1,16 @@
 """Wrapper of the CUDA paged flash attention (``csrc/paged_attention.cu``).
 
-The port of ``repro.kernels.paged_attention._flash_pallas``: attention of
-``q [B, L, H, hd]`` over a page pool ``{'k','v'[,'k_scale','v_scale']}``
-of shape ``[num_pages, P, KVH, hd]`` through ``page_table [B, maxp]``,
-where query lane ``i`` of sequence ``b`` sees positions ``< kv_len[b] + i``
-(decode L = 1, prefill chunk L = C).  Written in CUDA C++ rather than
-Triton: it shares the nvcc + ctypes build of the matmul kernel (seconds,
-no JIT per shape), and the non-power-of-two head_dim (120) is padded in
-shared memory by hand.  ``launch_count`` counts launches.
+The port of ``repro.kernels.paged_attention._flash_pallas`` and its
+``_merge_splits``: attention of ``q [B, L, H, hd]`` over a page pool
+``{'k','v'[,'k_scale','v_scale']}`` of shape ``[num_pages, P, KVH, hd]``
+through ``page_table [B, maxp]``, where query lane ``i`` of sequence ``b``
+sees positions ``< kv_len[b] + i`` (decode L = 1, prefill chunk L = C).
+The table is cut into ``splits_for(...)`` page ranges, each folded by its
+own blocks into an fp32 partial ``(acc, m, l)`` in scratch allocated here;
+a second kernel merges them in split order.  Written in CUDA C++ rather
+than Triton: it shares the nvcc + ctypes build of the other kernels, and
+the non-power-of-two head_dim (120) is padded in shared memory by hand.
+``launch_count`` counts wrapper calls that launched.
 """
 from __future__ import annotations
 
@@ -20,6 +23,11 @@ from . import _build
 
 _KV_MODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _COUNTS = {"launches": 0}
+SMS = 132                  # streaming multiprocessors of the H100 SXM
+BLOCKS_PER_SM = 2          # attend blocks the split aims to keep in flight
+ROW_TILE = 64              # query rows per block at prefill (csrc MMA_ROWS)
+MIN_SPLIT_TOKENS = 64      # two 32-token chunks: a split's least work
+MAX_SPLITS = 32
 
 
 def launch_count() -> int:
@@ -33,10 +41,23 @@ def reset_counts() -> None:
 @functools.cache
 def _fn():
     fn = _build.load("paged_attention").paged_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                    + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=256)
+def splits_for(b: int, kvh: int, maxp: int, page_size: int, lanes: int,
+               rep: int) -> int:
+    """The number of page ranges S of one call, a pure function of the
+    shapes: enough (b, kv-head, split, row-tile) blocks for about
+    BLOCKS_PER_SM per SM, while each split keeps at least
+    MIN_SPLIT_TOKENS tokens (and so at least one page) of the table."""
+    tiles = -(-(lanes * rep) // ROW_TILE)
+    want = -(-(BLOCKS_PER_SM * SMS) // (b * kvh * tiles))
+    most = max(1, maxp // max(1, -(-MIN_SPLIT_TOKENS // page_size)))
+    return max(1, min(want, most, MAX_SPLITS))
 
 
 def _need(cond: bool, msg: str) -> None:
@@ -59,7 +80,8 @@ def paged_attention_cuda(q: torch.Tensor, pool: dict,
           f"unsupported pool dtype {k.dtype}")
     _need(hd_k == hd and v.shape == k.shape, "pool shape mismatch")
     _need(h % kvh == 0, f"q heads {h} not a multiple of kv heads {kvh}")
-    _need(hd <= 128, f"head_dim {hd} > 128")
+    _need(hd <= 128 and hd % 8 == 0,
+          f"head_dim {hd} must be a multiple of 8 and <= 128")
     _need(page_table.dtype == torch.int32 and page_table.dim() == 2
           and page_table.shape[0] == b, "page_table must be int32 [B, maxp]")
     _need(kv_len.dtype == torch.int32 and kv_len.shape == (b,),
@@ -75,14 +97,27 @@ def paged_attention_cuda(q: torch.Tensor, pool: dict,
     for t in operands:
         _need(t.device == q.device, "all operands on one device")
         _need(t.is_contiguous(), "operands must be contiguous")
+    for t in (k, v):
+        _need(t.data_ptr() % 16 == 0, "the pools must be 16-byte aligned "
+              "(the kernel's vector loads)")
 
+    maxp = page_table.shape[1]
+    rep = h // kvh
+    splits = splits_for(b, kvh, maxp, page_size, lanes, rep)
     out = torch.empty_like(q)
+    part = [None, None, None]
+    if splits > 1:  # one scratch buffer: acc [rows, hd], then m, then l
+        rows = b * kvh * splits * lanes * rep
+        scratch = torch.empty((rows * (hd + 2),), dtype=torch.float32,
+                              device=q.device)
+        part = [scratch, scratch[rows * hd:], scratch[rows * (hd + 1):]]
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 pool["k_scale"].data_ptr() if quantized else None,
                 pool["v_scale"].data_ptr() if quantized else None,
                 page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-                b, lanes, h, kvh, hd, page_size, page_table.shape[1],
-                -1 if window is None else int(window),
+                *(t.data_ptr() if t is not None else None for t in part),
+                b, lanes, h, kvh, hd, page_size, maxp,
+                -1 if window is None else int(window), splits,
                 hd ** -0.5,  # rounded to fp32 by c_float, as JAX does
                 int(q.dtype == torch.bfloat16), _KV_MODE[k.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)

@@ -208,3 +208,66 @@ def flash_paged(q: torch.Tensor, pool: dict, page_table: torch.Tensor,
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]     # [B, G, rep, L, hd]
     return out.permute(0, 3, 1, 2, 4).reshape(b, lanes, h, hd).to(q.dtype)
+
+
+def flash_paged_split(q: torch.Tensor, pool: dict, page_table: torch.Tensor,
+                      kv_len: torch.Tensor, window: int | None,
+                      splits: int) -> torch.Tensor:
+    """Split flash paged attention, the mirror of ``_flash_pallas`` +
+    ``_merge_splits``: the table is cut into ``ns = clamp(splits, 1, maxp)``
+    ranges of ``pps = ceil(maxp / ns)`` pages (padded with page 0, whose
+    positions the kv_len mask drops); each range folds its pages one at a
+    time into an fp32 online-softmax partial ``(acc, m, l)``, and the
+    partials merge as ``m* = max m_s``, ``w = exp(m_s - m*)``,
+    ``out = sum acc_s w / max(sum l_s w, 1e-30)``.  A range with no
+    visible position keeps ``m = NEG_INF, l = 0, acc = 0``.  The CUDA
+    kernel computes this at its own ``splits``.  q: [B, L, H, hd] ->
+    [B, L, H, hd] in q.dtype."""
+    b, lanes, h, hd = q.shape
+    page_size, kvh = pool["k"].shape[1], pool["k"].shape[2]
+    rep = h // kvh
+    maxp = page_table.shape[1]
+    ns = max(1, min(splits, maxp))
+    pps = -(-maxp // ns)
+    pad = ns * pps - maxp
+    pt = F.pad(page_table, (0, pad)) if pad else page_table
+    pt = pt.reshape(b, ns, pps).long()
+    quantized = pool["k"].dtype == torch.int8
+    dev = q.device
+
+    q5 = (q.to(torch.float32) * hd ** -0.5).reshape(b, lanes, kvh, rep, hd)
+    row_len = (kv_len.to(torch.int32)[:, None]
+               + torch.arange(lanes, dtype=torch.int32, device=dev)[None, :])
+    shape = (b, kvh, ns, rep, lanes)
+    m = torch.full(shape, NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros(shape, dtype=torch.float32, device=dev)
+    acc = torch.zeros(shape + (hd,), dtype=torch.float32, device=dev)
+    offs = torch.arange(page_size, dtype=torch.int32, device=dev)
+    for p in range(pps):
+        ids = pt[:, :, p]                                 # [B, ns]
+        kb, vb = pool["k"][ids], pool["v"][ids]           # [B, ns, P, KVH, hd]
+        if quantized:
+            kb = kb.to(torch.float32) * pool["k_scale"][ids]
+            vb = vb.to(torch.float32) * pool["v_scale"][ids]
+        kb, vb = kb.to(torch.float32), vb.to(torch.float32)
+        pos = ((torch.arange(ns, dtype=torch.int32, device=dev) * pps + p)
+               * page_size)[:, None] + offs[None, :]      # [ns, P]
+        ok = pos[None, None] < row_len[:, :, None, None]  # [B, L, ns, P]
+        if window is not None:
+            ok &= pos[None, None] >= row_len[:, :, None, None] - window
+        okb = ok.permute(0, 2, 1, 3)[:, None, :, None]    # [B,1,ns,1,L,P]
+        s = torch.einsum("bqgrd,bskgd->bgsrqk", q5, kb)
+        s = torch.where(okb, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p_ = torch.where(okb, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p_.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bgsrqk,bskgd->bgsrqd",
+                                                    p_, vb)
+        m = m_new
+    m_star = m.amax(2, keepdim=True)
+    w = torch.exp(m - m_star)
+    l_star = (l * w).sum(2)
+    out = (acc * w[..., None]).sum(2) / torch.clamp_min(l_star, 1e-30)[
+        ..., None]                                        # [B, G, rep, L, hd]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, lanes, h, hd).to(q.dtype)

@@ -3,10 +3,12 @@
 The port of ``repro.kernels.slide_matmul.compressed_matmul_pallas``:
 ``y[R, M] = act((x @ decompress(values, indices)^T) (* s_x * s_w) (+ bias))``
 with the slide undone during decompression.  ``launch_count`` counts the
-kernel's launches; ``decompress_count`` is the analog of the Pallas
-kernel's decompression counter: weight tiles decompressed per call, which
-here is (M tiles) x (K stages) x (row blocks) because every row block
-decompresses its own tiles.
+wrapper's launches.  ``decompress_count`` is the analog of the Pallas
+kernel's decompression counter: weight tiles decompressed into shared
+memory per call.  The int8/w4 decode instance (R <= DECODE_MAX_R) builds
+no tile (0); the int8/w4 prefill instance decompresses each (PF_BM x
+stage) tile once per PF_BR activation rows; the float path (e4m3, bf16,
+f32) decompresses each (BM x BK_MAX) tile once per row block.
 """
 from __future__ import annotations
 
@@ -17,8 +19,13 @@ import torch
 
 from . import _build
 
-BM = 64       # weight rows per block (csrc BM)
-BK_MAX = 64   # dense K per stage (csrc BK_MAX)
+DECODE_MAX_R = 16  # int8/w4: R at or below runs the decode instance (csrc)
+PF_BM = 64         # prefill: weight rows per block (csrc PF_BM)
+PF_BR = 128        # prefill: activation rows per block (csrc PF_BR)
+MIN_SPLIT_STAGES = 4  # prefill: K stages a split of K keeps at least
+SMS = 132          # streaming multiprocessors of the H100 SXM
+BM = 64            # float path: weight rows per block (csrc BM)
+BK_MAX = 64        # float path: dense K per stage (csrc BK_MAX)
 _XMODE = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.bfloat16: 2,
           torch.float32: 3}
 _ACT = {None: 0, "silu": 1, "gelu": 2}
@@ -41,9 +48,24 @@ def reset_counts() -> None:
 @functools.cache
 def _fn():
     fn = _build.load("compressed_matmul").compressed_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def prefill_stage(n_fam: int) -> int:
+    """Dense K columns per stage of the prefill instance (csrc PfTile::BK):
+    whole window groups and a multiple of the mma's k = 32."""
+    return 96 if n_fam == 3 else 64
+
+
+def prefill_splits(rows: int, m: int, k: int, n_fam: int) -> int:
+    """Splits of K for the int8/w4 prefill instance, a pure function of the
+    shapes: enough blocks for one per SM where the (M / PF_BM) x (R / PF_BR)
+    tiles alone are fewer, each split keeping MIN_SPLIT_STAGES stages."""
+    tiles = -(-m // PF_BM) * -(-rows // PF_BR)
+    stages = -(-k // prefill_stage(n_fam))
+    return max(1, min(-(-SMS // tiles), stages // MIN_SPLIT_STAGES))
 
 
 def _need(cond: bool, msg: str) -> None:
@@ -101,17 +123,34 @@ def compressed_matmul_cuda(x: torch.Tensor, values: torch.Tensor,
         _need(t.device == x.device, "all operands on one device")
         _need(t.is_contiguous(), "operands must be contiguous")
 
+    integer = x.dtype == torch.int8
+    splits = (prefill_splits(rows, m, k, n_fam)
+              if integer and rows > DECODE_MAX_R else 1)
     out = torch.empty((rows, m), dtype=out_dtype, device=x.device)
+    part = (torch.empty((splits, rows, m), dtype=torch.int32, device=x.device)
+            if splits > 1 else None)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     err = _fn()(ptr(x), ptr(values), ptr(indices),
                 ptr(s_x) if quantized else None,
                 ptr(s_w) if quantized else None, ptr(bias), ptr(out),
-                rows, m, k, n_fam, _XMODE[x.dtype], int(packed),
-                int(out_dtype == torch.bfloat16), _ACT[activation],
+                ptr(part), rows, m, k, n_fam, _XMODE[x.dtype], int(packed),
+                int(out_dtype == torch.bfloat16), _ACT[activation], splits,
                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "compressed_matmul_launch")
     _COUNTS["launches"] += 1
-    br = 64 if rows > 16 else 16
-    _COUNTS["decompress"] += (-(-m // BM) * -(-rows // br)
-                              * -(-(k // l) // (BK_MAX // l)))
+    _COUNTS["decompress"] += decompressed_tiles(rows, m, k, n_fam, integer)
     return out
+
+
+def decompressed_tiles(rows: int, m: int, k: int, n_fam: int,
+                       integer: bool) -> int:
+    """Weight tiles one call decompresses into shared memory."""
+    groups = k // (2 * n_fam)
+    if integer:
+        if rows <= DECODE_MAX_R:
+            return 0
+        per_stage = prefill_stage(n_fam) // (2 * n_fam)
+        return -(-m // PF_BM) * -(-groups // per_stage) * -(-rows // PF_BR)
+    br = 64 if rows > 16 else 16
+    per_stage = BK_MAX // (2 * n_fam)
+    return -(-m // BM) * -(-rows // br) * -(-groups // per_stage)

@@ -152,7 +152,8 @@ def test_pack_params_match_jax(n, recipe):
                                   JM.init(jcfg, jax.random.PRNGKey(n)))
     jpacked = jax.tree_util.tree_map(np.asarray,
                                      jserve.pack_params(tree, jcfg))
-    tpacked = tserve.pack_params(params_from_jax(tree, tcfg), tcfg)
+    tpacked = tserve.pack_params(params_from_jax(tree, tcfg, device="cpu"),
+                                  tcfg)
     names = ["wq", "wk", "wv", "wo"]
     pairs = [(jpacked["lm_head"], tpacked["lm_head"])]
     for u in range(tcfg.num_units):
@@ -170,6 +171,25 @@ def test_pack_params_match_jax(n, recipe):
 
 def test_to_torch_bitcasts_bf16_and_fp8():
     x = np.asarray(jnp.asarray([1.5, -2.25, 3e-3], jnp.bfloat16))
-    assert_bit_equal(x, to_torch(x))
+    assert_bit_equal(x, to_torch(x, device="cpu"))
     f = np.asarray(jnp.asarray([1.5, -448.0, 0.0], jnp.float8_e4m3fn))
-    assert_bit_equal(f, to_torch(f))
+    assert_bit_equal(f, to_torch(f, device="cpu"))
+
+
+@pytest.mark.parametrize("convert", ["to_torch", "params_from_jax"])
+def test_convert_defaults_to_the_card(monkeypatch, convert):
+    """Like every entry point of the port, the weight converters put their
+    tensors on the card unless a device is named, and raise where there is
+    no CUDA rather than run on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = {"embed": {"w": np.zeros((4, 2), np.float32)},
+            "units": {"w": np.zeros((1, 2), np.float32)}}
+    cfg = dataclasses.make_dataclass("Cfg", [("num_units", int)])(1)
+    call = ((lambda **kw: to_torch(tree["embed"]["w"], **kw))
+            if convert == "to_torch"
+            else (lambda **kw: params_from_jax(tree, cfg, **kw)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+    out = call(device="cpu")
+    leaf = out if convert == "to_torch" else out["units"][0]["w"]
+    assert leaf.device.type == "cpu"

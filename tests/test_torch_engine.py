@@ -89,7 +89,8 @@ def test_engine_streams_match_jax_engine(jax_tree, mode, recipe):
                               jserve.EngineConfig(**ECFG))
     want = _serve(jeng, prompts, late)
     teng = tserve.ServeEngine(
-        tserve.pack_params(params_from_jax(jax_tree, tcfg), tcfg), tcfg,
+        tserve.pack_params(params_from_jax(jax_tree, tcfg, device="cpu"),
+                            tcfg), tcfg,
         tserve.EngineConfig(**ECFG), device="cpu")
     teng.warmup()  # writes nothing: the streams below are unaffected
     got = _serve(teng, prompts, late)
@@ -105,7 +106,8 @@ def test_slided_engine_equals_compressed_engine(jax_tree):
     engines = {}
     for mode in ("compressed", "slided"):
         cfg = _tcfg(mode, "int8")
-        params = tserve.pack_params(params_from_jax(jax_tree, cfg), cfg)
+        params = tserve.pack_params(
+            params_from_jax(jax_tree, cfg, device="cpu"), cfg)
         leaf = params["units"][0]["layer_0"]["ffn"]["w_down"]
         assert set(leaf) == ({"w_slided", "s_w"} if mode == "slided"
                              else {"values", "indices", "s_w"})

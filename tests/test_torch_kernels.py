@@ -14,6 +14,11 @@ they replace, run in interpret mode on the CPU.
   interpret=True)`` for decode and prefill-chunk lanes, fp32 and int8 pools,
   window on and off, GQA rep > 1 and head_dim 24: atol = rtol = 1e-5, since
   online softmax reassociates its sums.
+* B2's split dataflow ``ref.flash_paged_split`` (what the CUDA kernel
+  computes at its own split count) against ``_flash_pallas(splits=s,
+  interpret=True)`` for s in 1..4, with tables whose tails are
+  unallocated, so some splits see no position; the wrapper's split
+  chooser and B1's launch plan as pure functions of shapes.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -57,7 +62,8 @@ def test_compressed_matmul_plain_matches_pallas(recipe, activation, n):
     tcfg = tlin.SparsityConfig(pattern=(z, l), mode="compressed",
                                recipe=recipe)
     jp = jlin.prepare({"w": jnp.asarray(w)}, jcfg)
-    tp = {key: to_torch(np.asarray(v)) for key, v in jp.items()}
+    tp = {key: to_torch(np.asarray(v), device="cpu")
+          for key, v in jp.items()}
     rec = jprec.resolve(recipe)
     jc = JCompressed(jp["values"], jp["indices"], k, z, l, 2, 4,
                      packed=rec.packed_weights)
@@ -171,3 +177,90 @@ def test_flash_paged_plain_matches_pallas(lanes, quant, window):
                                   sliding_window=window)
     np.testing.assert_allclose(_np(via_ops), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+# B2's split dataflow: ref.flash_paged_split is what the CUDA kernel
+# computes at its own split count.  Tolerance atol = rtol = 1e-5 (bf16
+# pools: the same, both sides widen the same bf16 values to fp32): online
+# softmax reassociates its sums, and page-by-page folding in another
+# order rounds differently.
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("lanes", [1, 6])
+@pytest.mark.parametrize("pool_kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("window", [None, 7])
+def test_flash_paged_split_matches_pallas(splits, lanes, pool_kind, window):
+    rng = np.random.default_rng(1000 * splits + 100 * lanes
+                                + 10 * len(pool_kind) + (window or 0))
+    # maxp = 8 pages of 4 against at most 19 tokens: every table's tail is
+    # unallocated (page 0), so the last splits see no position at all
+    b, h, kvh, hd, page_size, maxp, num_pages = 3, 4, 2, 24, 4, 8, 24
+    pool = _pool(rng, num_pages, page_size, kvh, hd, pool_kind == "int8")
+    if pool_kind == "bf16":
+        pool = {k_: np.asarray(jnp.asarray(v, jnp.bfloat16))
+                for k_, v in pool.items()}
+    kv_len = np.array([1, 9, 19 - lanes], np.int32)
+    table = np.zeros((b, maxp), np.int32)
+    perm = rng.permutation(np.arange(1, num_pages))
+    used = 0
+    for i in range(b):
+        n = -(-(kv_len[i] + lanes - 1) // page_size)
+        table[i, :n] = perm[used:used + n]
+        used += n
+    q = rng.standard_normal((b, lanes, h, hd)).astype(np.float32)
+    want = jpa._flash_pallas(jnp.asarray(q),
+                             {k_: jnp.asarray(v) for k_, v in pool.items()},
+                             jnp.asarray(table), jnp.asarray(kv_len), window,
+                             splits=splits, interpret=True)
+    tpool = {k_: to_torch(v, device="cpu") for k_, v in pool.items()}
+    got = ref.flash_paged_split(torch.from_numpy(q), tpool,
+                                torch.from_numpy(table),
+                                torch.from_numpy(kv_len), window, splits)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [
+    # (B, KVH, maxp, page_size, lanes, rep)
+    (4, 8, 65, 16, 1, 4),      # chip_smoke decode: ~1000 tokens
+    (4, 8, 21, 16, 1, 4),      # the engine's decode step
+    (1, 8, 26, 16, 128, 4),    # a 128-lane prefill chunk
+    (1, 1, 1, 16, 1, 1),       # one page
+    (64, 8, 256, 16, 1, 4),    # enough blocks without a split
+    (2, 2, 300, 1, 1, 8),      # page size 1
+])
+def test_split_chooser_is_a_pure_function_of_shapes(shape):
+    b, kvh, maxp, page_size, lanes, rep = shape
+    s = tpa.splits_for(*shape)
+    assert s == tpa.splits_for(*shape)  # nothing but the shapes decides
+    assert 1 <= s <= tpa.MAX_SPLITS
+    pps = -(-maxp // s)
+    assert pps >= 1 and (s - 1) * pps < maxp + pps  # every split has pages
+    if s > 1:  # a split keeps at least MIN_SPLIT_TOKENS of the table
+        assert (maxp // s) * page_size >= tpa.MIN_SPLIT_TOKENS
+    blocks = b * kvh * -(-(lanes * rep) // tpa.ROW_TILE)
+    if blocks >= tpa.BLOCKS_PER_SM * tpa.SMS:
+        assert s == 1
+
+
+@pytest.mark.parametrize("shape", [
+    # (R, M, K, N)
+    (4, 3840, 3840, 4), (16, 960, 3840, 4), (17, 960, 3840, 4),
+    (128, 3840, 10240, 4), (128, 32000, 3840, 4), (40, 37, 120, 2),
+    (300, 100, 48, 3),
+])
+def test_compressed_matmul_instances_and_decompress_count(shape):
+    """B1's launcher plan as a pure function of shapes: the int8/w4 decode
+    instance (R <= DECODE_MAX_R) decompresses no tile; the prefill instance
+    each (PF_BM x stage) tile once per PF_BR activation rows, whatever the
+    split of K; the float path once per row block."""
+    r, m, k, n = shape
+    splits = tsm.prefill_splits(r, m, k, n)
+    assert splits == tsm.prefill_splits(r, m, k, n) >= 1
+    stages = -(-k // tsm.prefill_stage(n))
+    assert splits == 1 or stages // splits >= tsm.MIN_SPLIT_STAGES
+    tiles = tsm.decompressed_tiles(r, m, k, n, integer=True)
+    if r <= tsm.DECODE_MAX_R:
+        assert tiles == 0
+    else:
+        assert tiles == -(-m // tsm.PF_BM) * stages * -(-r // tsm.PF_BR)
+    assert tsm.decompressed_tiles(r, m, k, n, integer=False) > 0

@@ -144,7 +144,7 @@ def test_quant_matmul_plain_matches_pallas(case):
         jnp.asarray(x))
     jqw = (jq.quantize_fp8 if wdt == "fp8" else jq.quantize_int8)(
         jnp.asarray(w))
-    t = {n_: to_torch(np.asarray(v)) for n_, v in (
+    t = {n_: to_torch(np.asarray(v), device="cpu") for n_, v in (
         ("qx", jqx.q), ("sx", jqx.scale), ("qw", jqw.q), ("sw", jqw.scale))}
     jb = jnp.asarray(bias) if with_bias else None
     tb = torch.from_numpy(bias) if with_bias else None
