@@ -5,18 +5,23 @@ root of a checkout, on a machine with one NVIDIA H100.
 Phases (any failed check exits nonzero):
 1. device and build: the card's name and power limit, then the five CUDA
    kernels built from ``src/repro_torch/csrc`` (one nvcc each, together),
-   with ptxas' registers, shared memory and spills of every B1 and B2
-   instance and, where cuobjdump exists, their HMMA/IMMA counts;
+   with ptxas' registers, shared memory and spills of every B1, B2 and
+   B3 instance and, where cuobjdump exists, their HMMA/IMMA counts (B3
+   must hold sparse IMMA.SP);
 2. B1, the compressed-matmul kernel, against its plain version at every
    h2o-danube-3-4b projection shape x R in {1, 4, prefill_chunk} x
    recipes int8, w4 (bit-equal) and fp8, none (bf16; tolerance below),
    kernel and bf16 ``torch.matmul`` timed in turns; R in {5, 16, 17}
    across the decode/prefill switch, and N = 2, 3 with ragged M and K;
-2b. B3 (fused quant+lift+GEMM), B4 (quant+lift) and B5 (dense quantized
-   GEMM) against their plain versions at the same shapes x R: B3 int8/w4,
-   B4 and B5 int8 bit-equal, fp8 within two bf16 ulps of max|plain|; the
-   pipeline B4 -> B5 bit-equal to B3 for int8; the same checks at
-   N = 2, 3 with ragged shapes and f32 inputs; B3 with bias + SiLU;
+2b. B3 (fused quant+lift+GEMM on the 2:4 sparse tensor cores, fed the
+   2:4 operand of Phi(W)), B4 (quant+lift) and B5 (dense quantized GEMM)
+   against their plain versions at the same shapes x R: B3 int8/w4, B4
+   and B5 int8 bit-equal, fp8 within two bf16 ulps of max|plain|; the
+   pipeline B4 -> B5 bit-equal to B3 for int8; B3 at R 5/16/17 across
+   its decode/prefill switch, one split-K call launched twice
+   (bit-identical), int8 and w4 weights with planted zeros (a lone
+   non-zero at each window position); the same checks at N = 2, 3 with
+   ragged shapes and f32 inputs; B3 with bias + SiLU;
 3. B2, the paged-attention kernel, against its split plain version at the
    kernel's own split count, at full width (H=32, KVH=8, hd=120, page
    16): decode B=4 up to ~1000 tokens, a 128-lane prefill chunk, and the
@@ -80,7 +85,9 @@ def card_line() -> str:
 class Timer:
     """Device time of one call, in ms, averaged over ``iters`` calls; the
     L2 cache is flushed before each call (the main path finds each weight
-    cold), and the flush runs before the start event."""
+    cold), and the flush runs before the start event.  The device then
+    spins ~0.2 ms, so the host has enqueued the call before its start
+    event is reached and the reading holds no host time."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -95,6 +102,7 @@ class Timer:
         out = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(400_000)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -285,7 +293,8 @@ def phase_slided_kernels(torch, timer):
     names = ("B3", "B4", "B5")
     err = dict.fromkeys(names, 0.0)
     step = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                "bytes_s": 0.0, "ops_s": 0.0} for n in names}
+                "bytes_s": 0.0, "ops_s": 0.0, "dense_bytes_s": 0.0}
+            for n in names}
 
     def check(name, recipe, m, k, r, y, y_ref):
         e = (y.float() - y_ref.float()).abs().max().item()
@@ -301,14 +310,21 @@ def phase_slided_kernels(torch, timer):
                 f"{name} {recipe} {m}x{k} R={r}: err {e} > 2^-7*{scale}"
         err[name] = max(err[name], e)
 
-    def measure(name, recipe, m, k, r, kern, plain, library, nbytes, ops):
-        t_k = timer(kern)
+    def measure(name, recipe, m, k, r, kern, plain, library, nbytes, ops,
+                dense_bytes=None):
+        if library is not None:
+            t_k, t_l = timer.turns(kern, library)
+        else:
+            t_k, t_l = timer(kern), None
         t_p = timer(plain, iters=3, warmup=1)
-        t_l = timer(library) if library is not None else None
         b_ms, b_by = bound(nbytes, ops, "int8")
         lib = f"{t_l:.4f}" if t_l is not None else "null"
+        # B3: the bound over the dense slided matrix, as it was read before
+        # the 2:4 operand, for continuity
+        old = (f" (dense slided {bound(dense_bytes, ops, 'int8')[0]:.4f})"
+               if dense_bytes is not None else "")
         log(f"{name} {recipe} {m} {k} {r} | {t_k:.4f} {t_p:.4f} {lib} "
-            f"{b_ms:.4f} {b_by} | {err[name]:.3g}")
+            f"{b_ms:.4f}{old} {b_by} | {err[name]:.3g}")
         if recipe == "int8" and r == 4:
             n = STEP_COUNTS[(m, k)]
             st = step[name]
@@ -318,6 +334,11 @@ def phase_slided_kernels(torch, timer):
                                 else st["library_ms"] + n * t_l)
             st["bytes_s"] += n * nbytes / HBM_BYTES_S
             st["ops_s"] += n * ops / PEAK_OPS["int8"]
+            st["dense_bytes_s"] += n * (dense_bytes or 0) / HBM_BYTES_S
+
+    def operand_bytes(p):
+        return (p["sp_values"].numel() + 4 * p["sp_meta"].numel()
+                + 4 * p["s_w"].numel())
 
     for recipe in ("int8", "w4", "fp8", "fp8w4"):
         cfg = sl.SparsityConfig(pattern=(6, 8), mode="slided", recipe=recipe)
@@ -327,8 +348,13 @@ def phase_slided_kernels(torch, timer):
             w = (torch.randn((m, k), generator=gen, device="cuda")
                  * k ** -0.5).to(torch.bfloat16)
             p = sl.prepare({"w": w}, cfg)
-            ws, s_w = p["w_slided"], p["s_w"]
-            gk = ws.shape[1] * (2 if rec.packed_weights else 1)
+            sv, sm, s_w = p["sp_values"], p["sp_meta"], p["s_w"]
+            gk = fsm.lifted_width(k, 4)
+            # Phi(W) itself: B5's operand in the B4 -> B5 pipeline
+            ws = fsm.dense_from_operand(sv, sm, m, gk,
+                                        packed=rec.packed_weights)
+            w_bytes = operand_bytes(p)
+            dense_w = m * gk // (2 if rec.packed_weights else 1) + 4 * m
             # the dense K-wide operands: B5's weights and the yardstick's
             qw = rec.quantize_weight(packer.prune_to_pattern(w, dec.source))
             w_dense = (qw.q.float() * qw.scale).to(torch.bfloat16)
@@ -339,12 +365,12 @@ def phase_slided_kernels(torch, timer):
 
                 def b3():
                     return fsm.fused_slided_matmul_cuda(
-                        x, ws, s_w, n_fam=4, act=rec.act,
+                        x, sv, sm, s_w, n_fam=4, act=rec.act,
                         packed=rec.packed_weights, out_dtype=torch.bfloat16)
 
                 def b3_plain():
-                    return ref.slided_matmul_quant(x, ws, s_w, dec, rec,
-                                                   torch.bfloat16)
+                    return ref.slided_matmul_sparse(x, sv, sm, s_w, dec, rec,
+                                                    torch.bfloat16)
 
                 def library():
                     return torch.matmul(x, w_dense.T)
@@ -355,8 +381,9 @@ def phase_slided_kernels(torch, timer):
                 assert fsm.launch_count() == n0 + 1
                 check("B3", recipe, m, k, r, y, b3_plain())
                 measure("B3", recipe, m, k, r, b3, b3_plain, library,
-                        ws.numel() + 4 * m + r * k * 2 + r * m * 2,
-                        2 * r * m * k * 0.75)
+                        w_bytes + r * k * 2 + r * m * 2,
+                        2 * r * m * k * 0.75,
+                        dense_w + r * k * 2 + r * m * 2)
                 if rec.packed_weights:
                     continue
                 q, s_x = fqs.fused_quant_slide_cuda(x, n_fam=4, fp8=fp8)
@@ -388,8 +415,64 @@ def phase_slided_kernels(torch, timer):
                 measure("B5", recipe, m, k, r, b5, b5_plain, library,
                         r * k + 4 * r + m * k + 4 * m + r * m * 2,
                         2 * r * m * k)
-            del ws, s_w, qw, w_dense
+            if recipe == "int8" and (m, k) == (3840, 3840):
+                # one split-K decode call launched twice: bit-identical
+                x = torch.randn((4, k), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                splits = fsm.splits_for(4, m, gk)
+                assert splits > 1, f"B3 decode runs one split ({splits})"
+                y1, y2 = b3(), b3()
+                assert torch.equal(y1, y2), "B3 split-K: two launches differ"
+                log(f"B3 split-K decode {m}x{k} R=4: {splits} splits, two "
+                    "launches bit-identical")
+            # R across the decode/prefill switch (R <= DECODE_MAX_R)
+            if (m, k) == (3840, 3840):
+                for r in (5, 16, 17):
+                    x = torch.randn((r, k), generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+                    check("B3", recipe, m, k, r, b3(), b3_plain())
+            del sv, sm, ws, s_w, qw, w_dense
         torch.cuda.empty_cache()
+
+    # planted zeros: every window of the model's shape holds one non-zero
+    # at position 0, 1, 2 or 3 (JAX's slot order would give the pair
+    # (p, 0)), or two, or none; int8 and w4 bit-equal at R 1 / 4 / 128
+    for recipe in ("int8", "w4"):
+        rec = sl.SparsityConfig(pattern=(6, 8), mode="slided",
+                                recipe=recipe).recipe
+        m, gk = 3840, fsm.lifted_width(3840, 4)
+        hi = 8 if rec.packed_weights else 128
+        vals = torch.randint(1, hi, (m, gk // 4, 4), generator=gen,
+                             device="cuda", dtype=torch.int8)
+        vals = torch.where(torch.rand((m, gk // 4, 4), generator=gen,
+                                      device="cuda") < 0.5, vals, -vals)
+        kind = torch.randint(0, 7, (m, gk // 4, 1), generator=gen,
+                             device="cuda")
+        pos = torch.arange(4, device="cuda")
+        keep = (pos == kind) | ((kind == 4) & (pos % 2 == 0)) | (
+            (kind == 5) & (pos >= 2))
+        ws = torch.where(keep, vals, torch.zeros((), dtype=torch.int8,
+                                                 device="cuda"))
+        ws = ws.reshape(m, gk)
+        src = packer.pack_nibbles(ws) if rec.packed_weights else ws
+        sv, sm = fsm.sparse_operand(src, packed=rec.packed_weights)
+        assert torch.equal(fsm.dense_from_operand(
+            sv, sm, m, gk, packed=rec.packed_weights), src)
+        s_w = torch.rand((m, 1), generator=gen, device="cuda") * 1e-3
+        for r in (1, 4, PREFILL_CHUNK):
+            x = torch.randn((r, 3840), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            y = fsm.fused_slided_matmul_cuda(x, sv, sm, s_w, n_fam=4,
+                                             packed=rec.packed_weights,
+                                             out_dtype=torch.bfloat16)
+            check("B3", recipe, m, 3840, r, y,
+                  ref.slided_matmul_sparse(x, sv, sm, s_w,
+                                           sl.SparsityConfig(
+                                               pattern=(6, 8)).decomposition(),
+                                           rec, torch.bfloat16))
+        del sv, sm, ws, src
+    log("B3 planted zeros (one non-zero at each window position) int8/w4 "
+        "at 3840x3840, R 1/4/128: bit-equal")
 
     # the other families and ragged edges: N = 2, 3 (gamma*K not a
     # multiple of 16 at K = 120, so the byte-wise tails run), M not a
@@ -403,18 +486,22 @@ def phase_slided_kernels(torch, timer):
             for m, k in ((37, 120), (100, 48), (960, 3840)):
                 w = torch.randn((m, k), generator=gen, device="cuda")
                 p = sl.prepare({"w": w}, cfg)
-                for r in (1, 5, 40):
+                ws = fsm.dense_from_operand(p["sp_values"], p["sp_meta"], m,
+                                            fsm.lifted_width(k, l // 2),
+                                            packed=rec.packed_weights)
+                for r in (1, 5, 17, 40):
                     for dt in (torch.float32, torch.bfloat16):
                         x = torch.randn((r, k), generator=gen,
                                         device="cuda").to(dt)
                         y = fsm.fused_slided_matmul_cuda(
-                            x, p["w_slided"], p["s_w"], n_fam=l // 2,
-                            act=rec.act, packed=rec.packed_weights,
+                            x, p["sp_values"], p["sp_meta"], p["s_w"],
+                            n_fam=l // 2, act=rec.act,
+                            packed=rec.packed_weights,
                             out_dtype=torch.bfloat16)
                         check("B3", recipe, m, k, r, y,
-                              ref.slided_matmul_quant(
-                                  x, p["w_slided"], p["s_w"], dec, rec,
-                                  torch.bfloat16))
+                              ref.slided_matmul_sparse(
+                                  x, p["sp_values"], p["sp_meta"], p["s_w"],
+                                  dec, rec, torch.bfloat16))
                         cases += 1
                         if rec.packed_weights:
                             continue
@@ -426,7 +513,7 @@ def phase_slided_kernels(torch, timer):
                         check("B4", recipe, m, k, r, s_x, s_ref)
                         if recipe == "int8":
                             assert torch.equal(qmm.quant_matmul_cuda(
-                                q, s_x, p["w_slided"], p["s_w"],
+                                q, s_x, ws, p["s_w"],
                                 out_dtype=torch.bfloat16), y), \
                                 f"B4->B5 != B3 at {z}:{l} {m}x{k} R={r}"
     log(f"N = 2, 3 and ragged shapes: {cases} B3/B4 cases held (w4: B3 "
@@ -440,13 +527,14 @@ def phase_slided_kernels(torch, timer):
     p = sl.prepare({"w": w}, cfg)
     bias = torch.randn((m,), generator=gen, device="cuda")
     x = torch.randn((4, k), generator=gen, device="cuda").to(torch.bfloat16)
-    y = fsm.fused_slided_matmul_cuda(x, p["w_slided"], p["s_w"], bias,
-                                     n_fam=4, out_dtype=torch.bfloat16,
+    y = fsm.fused_slided_matmul_cuda(x, p["sp_values"], p["sp_meta"],
+                                     p["s_w"], bias, n_fam=4,
+                                     out_dtype=torch.bfloat16,
                                      activation="silu")
-    y_ref = ref.slided_matmul_quant(x, p["w_slided"], p["s_w"],
-                                    cfg.decomposition(), "int8",
-                                    torch.bfloat16, bias=bias,
-                                    activation="silu")
+    y_ref = ref.slided_matmul_sparse(x, p["sp_values"], p["sp_meta"],
+                                     p["s_w"], cfg.decomposition(), "int8",
+                                     torch.bfloat16, bias=bias,
+                                     activation="silu")
     check("B3", "int8+bias+silu", m, k, 4, y, y_ref)
     log(f"B3 int8 + bias + SiLU {m}x{k} R=4: max abs err "
         f"{(y.float() - y_ref.float()).abs().max().item():.3g}")
@@ -462,9 +550,12 @@ def phase_slided_kernels(torch, timer):
                           else "operations")
         lib = (f"{st['library_ms']:.3f} ms" if st["library_ms"] is not None
                else "null")
+        old = (f"; bound over the dense slided matrix "
+               f"{max(st['dense_bytes_s'], st['ops_s']) * 1e3:.3f} ms"
+               if name == "B3" else "")
         log(f"{name} per decode step (int8, R=4, {what}): kernel "
             f"{st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms, library "
-            f"{lib}, bound {st['bound_ms']:.3f} ms ({st['bound_by']})")
+            f"{lib}, bound {st['bound_ms']:.3f} ms ({st['bound_by']}){old}")
     return err, step
 
 
@@ -662,14 +753,30 @@ def _engine_run(eng, prompts):
     counters = _counters()
     for i, p in enumerate(prompts):
         eng.submit(p, NEW_TOKENS, rid=i, arrival=2 * i)
+    import torch
+    # the split of the run's wall time: each step ends in a synchronize
+    # (most already do, fetching tokens), and a step that advanced the
+    # scheduler's decode count is a decode step, the rest prefill chunks
+    marks = []
+
+    def on_step(e, k):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), e.sched.stats.decode_steps))
+
     for mod in counters.values():
         mod.reset_counts()
-    out = eng.run()
+    t_prev, d_prev = time.perf_counter(), 0
+    out = eng.run(on_step=on_step)
     launches = {name: mod.launch_count() for name, mod in counters.items()}
+    split = {"prefill": 0.0, "decode": 0.0}
+    for t, d in marks:
+        split["decode" if d > d_prev else "prefill"] += t - t_prev
+        t_prev, d_prev = t, d
     s = eng.stats
     log(f"run: {s.steps} steps, {s.decode_steps} decode steps, "
-        f"{s.decode_tokens} decode tokens in {s.wall_s:.3f} s; launches "
-        f"{launches}")
+        f"{s.decode_tokens} decode tokens in {s.wall_s:.3f} s (prefill "
+        f"steps {split['prefill']:.3f} s, decode steps "
+        f"{split['decode']:.3f} s); launches {launches}")
     assert sorted(out) == list(range(len(prompts)))
     assert all(c.ok and len(c.tokens) == NEW_TOKENS for c in out.values())
     eng.kv.check()
@@ -823,7 +930,8 @@ def main() -> int:
                   if "spill" in line and " 0 bytes spill stores" not in line]
         log(f"ptxas {name}: {len(regs)} kernels, max {max(regs, default=0)} "
             f"registers, {len(spills)} with spills")
-        if name in ("compressed_matmul", "paged_attention"):
+        if name in ("compressed_matmul", "paged_attention",
+                    "fused_slided_matmul"):
             # the redesigned kernels: every instance's registers, shared
             # memory and spills as ptxas reports them
             entry = ""
@@ -835,13 +943,19 @@ def main() -> int:
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if Path(cuobjdump).exists():
         # the tensor-core instances exist: mma.sync in the SASS of B1 (IMMA,
-        # int8 prefill) and B2 (HMMA, bf16 prefill chunk)
-        for name in ("compressed_matmul", "paged_attention"):
+        # int8 prefill) and B2 (HMMA, bf16 prefill chunk), mma.sp in B3's
+        # int8/w4 instances (the sparse IMMA form, IMMA.SP)
+        for name in ("compressed_matmul", "paged_attention",
+                     "fused_slided_matmul"):
             sass = subprocess.run([cuobjdump, "-sass", str(libs[name])],
                                   capture_output=True, text=True,
                                   timeout=120).stdout
+            sparse = sass.count("IMMA.SP")
             log(f"SASS {name}: {sass.count('HMMA')} HMMA, "
-                f"{sass.count('IMMA')} IMMA instructions")
+                f"{sass.count('IMMA')} IMMA instructions, {sparse} of them "
+                "sparse (IMMA.SP)")
+            if name == "fused_slided_matmul":
+                assert sparse > 0, "B3 has no sparse IMMA instruction"
     else:
         log("SASS: cuobjdump not found, tensor-core instructions not counted")
 

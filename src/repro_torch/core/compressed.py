@@ -92,3 +92,43 @@ def decompress_original(c: CompressedSlided) -> torch.Tensor:
                                                   dtype=vals.dtype)
             for d in range(c.l)]
     return torch.stack(cols, dim=-1).reshape(lead + (g * c.l,))
+
+
+def decompress_slided(c: CompressedSlided) -> torch.Tensor:
+    """Inverse of :func:`compress`: the slided dense windows
+    [..., gamma*K].  Each slot's value lands at its in-window position
+    (compares and selects, as in :func:`decompress_original`)."""
+    dec = c.decomposition
+    g = c.k // c.l
+    nw, m, n = dec.num_windows, c.m, dec.hw.n
+    lead = tuple(c.indices.shape[:-1])
+    vals = c.values_unpacked().reshape(lead + (g, nw, m))
+    idx = c.indices.reshape(lead + (g, nw, m)).to(torch.int32)
+    zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
+    cols = [torch.where(idx == p, vals, zero).sum(dim=-1, dtype=vals.dtype)
+            for p in range(n)]
+    return torch.stack(cols, dim=-1).reshape(lead + (g * nw * n,))
+
+
+def pack_meta(indices: torch.Tensor) -> torch.Tensor:
+    """Bit-pack 2-bit indices into int32 words, 16 per word (index ``i``
+    of a word at bits ``2i``), the last word zero-padded."""
+    n = indices.shape[-1]
+    pad = (-n) % 16
+    flat = indices.to(torch.int64)
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    grp = flat.reshape(tuple(flat.shape[:-1]) + ((n + pad) // 16, 16))
+    shifts = 2 * torch.arange(16, dtype=torch.int64, device=indices.device)
+    words = (grp << shifts).sum(dim=-1)
+    # the fields do not overlap, so the sum is their OR; wrap to int32
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def unpack_meta(words: torch.Tensor, count: int) -> torch.Tensor:
+    """Inverse of :func:`pack_meta`: int8 indices of length ``count``."""
+    shifts = 2 * torch.arange(16, dtype=torch.int32, device=words.device)
+    idx = (words.to(torch.int32)[..., None] >> shifts) & 3
+    idx = idx.reshape(tuple(words.shape[:-1]) + (-1,))[..., :count]
+    return idx.to(torch.int8)

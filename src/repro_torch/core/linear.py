@@ -84,8 +84,11 @@ def init(gen: torch.Generator, k_in: int, m_out: int,
 def prepare(params: dict[str, Any], cfg: SparsityConfig) -> dict[str, Any]:
     """Offline phase (§4.1) + load-time compression (§4.3): prune to the
     pattern, quantize per row per the recipe, Phi, then compress
-    ('compressed') or keep the slided matrix ('slided'), nibble-packed for
-    'w4' either way.  'dense' passes through unchanged."""
+    ('compressed', nibble-packed for 'w4'), or for 'slided' store Phi(W)
+    as the fused kernel's 2:4 operand (``sp_values``, ``sp_meta``;
+    ``fused_slide_matmul.sparse_operand``) under a quantized recipe and
+    as the dense slided matrix ``w_slided`` under 'none'.  'dense' passes
+    through unchanged."""
     _check_mode(cfg)
     dec = cfg.decomposition()
     if cfg.mode == "dense" or dec is None:
@@ -100,8 +103,13 @@ def prepare(params: dict[str, Any], cfg: SparsityConfig) -> dict[str, Any]:
         w_store = w
     ws = slide.phi(w_store, dec)
     if cfg.mode == "slided":
-        out["w_slided"] = (packer.pack_nibbles(ws) if rec.packed_weights
-                           else ws)
+        if rec.quantized:
+            from repro_torch.kernels import fused_slide_matmul as fsm
+            out["sp_values"], out["sp_meta"] = fsm.sparse_operand(
+                packer.pack_nibbles(ws) if rec.packed_weights else ws,
+                packed=rec.packed_weights)
+        else:
+            out["w_slided"] = ws
         return out
     c = comp.compress(ws, dec, pack_values=rec.packed_weights)
     out["values"], out["indices"] = c.values, c.indices
@@ -132,12 +140,11 @@ def apply(params: dict[str, Any], x: torch.Tensor, cfg: SparsityConfig,
     if not _prepared(params, cfg):
         params = prepare(params, cfg)
     if cfg.mode == "slided":
-        ws = params["w_slided"]
         if rec.quantized:
-            return kops.slided_matmul_quant(x, ws, params["s_w"], dec,
-                                            recipe=rec, out_dtype=x.dtype,
-                                            activation=activation)
-        y = slide.slided_matmul(x, ws, dec).to(x.dtype)
+            return kops.slided_matmul_quant(
+                x, params["sp_values"], params["sp_meta"], params["s_w"], dec,
+                recipe=rec, out_dtype=x.dtype, activation=activation)
+        y = slide.slided_matmul(x, params["w_slided"], dec).to(x.dtype)
         return ref.apply_activation(y, activation) if activation else y
     k = params["indices"].shape[-1] * dec.source.l // dec.source.z
     c = comp.CompressedSlided(
@@ -148,5 +155,6 @@ def apply(params: dict[str, Any], x: torch.Tensor, cfg: SparsityConfig,
 
 
 def _prepared(params: dict[str, Any], cfg: SparsityConfig) -> bool:
-    return ("w_slided" in params) if cfg.mode == "slided" \
-        else ("values" in params)
+    if cfg.mode == "slided":
+        return "sp_values" in params or "w_slided" in params
+    return "values" in params

@@ -1,11 +1,13 @@
-// The quantized GEMM body shared by the fused slided matmul (B3,
-// fused_slided_matmul.cu) and the dense quantized matmul (B5,
-// quant_matmul.cu):
+// The quantized GEMM body of the dense quantized matmul (B5,
+// quant_matmul.cu), and the epilogue helpers (activate, byte_to_f) that
+// the fused slided matmul (B3, fused_slided_matmul.cu) shares with it:
 //
 //   y[R, M] = act((a[R, Kc] @ w[M, Kc]^T) * s_x * s_w + bias)
 //
 // where ``a`` is either quantized and lifted from float x in the prologue
-// (LIFT, B3: Kc = gamma*K) or read as given (B5: Kc = K, s_x given).
+// (LIFT, the first port's B3: Kc = gamma*K; no longer instantiated, B3
+// runs on the 2:4 sparse tensor cores) or read as given (B5: Kc = K, s_x
+// given).
 //
 // Layout.  A block has W warps; each warp owns WR weight rows and the
 // block RB activation rows, so a block covers (W*WR) x RB outputs.  The

@@ -13,9 +13,9 @@
 // The TPU kernel carries an accumulator in VMEM scratch across its
 // sequential K grid axis; here a block walks K itself, in 1536-byte
 // stages of activations copied to shared memory, and keeps the sums in
-// registers.  The dot and the epilogue are quant_gemm.cuh, the same code
-// as the fused slided matmul's, so on the same lifted operands the two
-// kernels sum the same integers in the same order and round the same way.
+// registers.  The dot and the epilogue are quant_gemm.cuh; on the same
+// lifted operands it sums the same integers as the fused slided matmul
+// (exact int32, so in any order) and rounds the same way.
 //
 // What bounds it on the H100: at decode the weight stream (1 byte per
 // weight) against 3.35 TB/s, met with 16-byte loads and M/4 blocks; at

@@ -66,15 +66,16 @@ def quant_matmul(q_x: torch.Tensor, s_x: torch.Tensor, q_w: torch.Tensor,
     return y.reshape(lead + (y.shape[-1],))
 
 
-def slided_matmul_quant(x: torch.Tensor, w_slided_q: torch.Tensor,
-                        s_w: torch.Tensor, dec: SlideDecomposition,
-                        recipe="int8", out_dtype=None,
+def slided_matmul_quant(x: torch.Tensor, sp_values: torch.Tensor,
+                        sp_meta: torch.Tensor, s_w: torch.Tensor,
+                        dec: SlideDecomposition, recipe="int8", out_dtype=None,
                         bias: torch.Tensor | None = None,
                         activation: str | None = None) -> torch.Tensor:
     """The paper's GPU path as ONE kernel: per-token quantization and
     lifting in the GEMM prologue, so the lifted gamma*K activations never
-    reach device memory.  int8 or e4m3 activations against int8 or
-    nibble-packed int4 slided weights [M, gamma*K (/2 packed)]."""
+    reach device memory.  int8 or e4m3 activations against the 2:4
+    operand of the slided weights (``fused_slide_matmul.sparse_operand``
+    of Phi(W), int8 or nibble-packed int4), M = ``s_w.shape[0]``."""
     rec = precision.resolve(recipe)
     if not rec.quantized:
         raise ValueError(f"recipe {rec.name!r} has no quantized GEMM form")
@@ -84,12 +85,13 @@ def slided_matmul_quant(x: torch.Tensor, w_slided_q: torch.Tensor,
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if x2.is_cuda:
         y = _fsm.fused_slided_matmul_cuda(
-            x2, w_slided_q, s_w, bias, n_fam=n, act=rec.act,
+            x2, sp_values, sp_meta, s_w, bias, n_fam=n, act=rec.act,
             packed=rec.packed_weights, out_dtype=out_dtype,
             activation=activation)
     else:
-        y = ref.slided_matmul_quant(x2, w_slided_q, s_w, dec, rec, out_dtype,
-                                    bias=bias, activation=activation)
+        y = ref.slided_matmul_sparse(x2, sp_values, sp_meta, s_w, dec, rec,
+                                     out_dtype, bias=bias,
+                                     activation=activation)
     return y.reshape(lead + (y.shape[-1],))
 
 

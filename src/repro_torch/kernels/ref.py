@@ -135,6 +135,23 @@ def slided_matmul_quant(x: torch.Tensor, w_slided_q: torch.Tensor,
                                  packed=rec.packed_weights)
 
 
+def slided_matmul_sparse(x: torch.Tensor, sp_values: torch.Tensor,
+                         sp_meta: torch.Tensor, s_w: torch.Tensor, dec,
+                         recipe, out_dtype=None, bias=None,
+                         activation: str | None = None) -> torch.Tensor:
+    """The fused kernel's function on its 2:4 operand
+    (``fused_slide_matmul.sparse_operand``): invert the layout to Phi(W),
+    then :func:`slided_matmul_quant`.  M is ``s_w.shape[0]``."""
+    from . import fused_slide_matmul as fsm  # the operand's layout
+
+    rec = precision.resolve(recipe)
+    gk = fsm.lifted_width(x.shape[-1], dec.source.family_n)
+    ws = fsm.dense_from_operand(sp_values, sp_meta, s_w.shape[0], gk,
+                                packed=rec.packed_weights)
+    return slided_matmul_quant(x, ws, s_w, dec, rec, out_dtype, bias=bias,
+                               activation=activation)
+
+
 def slided_matmul_dequant(q_lift: torch.Tensor, s_x: torch.Tensor,
                           w_slided: torch.Tensor, s_w: torch.Tensor,
                           out_dtype, bias=None,

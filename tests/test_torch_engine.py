@@ -8,7 +8,9 @@
   and must emit IDENTICAL greedy streams for both modes and the ``none``
   and ``int8`` recipes.
 * Slided int8 == compressed int8 in the port, streams and first-token
-  logits bit for bit (the gate chip_smoke holds on the card).
+  logits bit for bit (the gate chip_smoke holds on the card); the slided
+  weights, stored as the fused kernel's 2:4 operand, invert to JAX's
+  ``w_slided``.
 * The model entry points that allocate run on CUDA unless given a device.
 * Scheduler: the port's verbatim copy makes the same decisions as
   ``repro.runtime.scheduler`` on the same submits.
@@ -29,6 +31,7 @@ from repro.runtime import serve_loop as jserve
 from repro_torch.configs import registry as treg
 from repro_torch.convert import params_from_jax
 from repro_torch.core import linear as tlin
+from repro_torch.kernels import fused_slide_matmul as tfsm
 from repro_torch.models import attention as tattn, layers as tlayers
 from repro_torch.models import model as TM, transformer as ttf
 from repro_torch.runtime import kv_cache as tkv, scheduler as tsch
@@ -109,8 +112,24 @@ def test_slided_engine_equals_compressed_engine(jax_tree):
         params = tserve.pack_params(
             params_from_jax(jax_tree, cfg, device="cpu"), cfg)
         leaf = params["units"][0]["layer_0"]["ffn"]["w_down"]
-        assert set(leaf) == ({"w_slided", "s_w"} if mode == "slided"
+        assert set(leaf) == ({"sp_values", "sp_meta", "s_w"}
+                             if mode == "slided"
                              else {"values", "indices", "s_w"})
+        if mode == "slided":
+            # the 2:4 operand, inverted, is JAX's slided matrix
+            jcfg = dataclasses.replace(jreg.smoke_config(ARCH),
+                                       sparsity=jlin.SparsityConfig(
+                                           pattern=(6, 8), mode=mode,
+                                           recipe="int8", use_pallas=False))
+            jleaf = jserve.pack_params(jax_tree, jcfg)["units"]["layer_0"][
+                "ffn"]["w_down"]
+            want = np.asarray(jleaf["w_slided"])[0]
+            got = tfsm.dense_from_operand(
+                leaf["sp_values"], leaf["sp_meta"], leaf["s_w"].shape[0],
+                want.shape[-1])
+            np.testing.assert_array_equal(got.numpy(), want)
+            np.testing.assert_array_equal(leaf["s_w"].numpy(),
+                                          np.asarray(jleaf["s_w"])[0])
         engines[mode] = tserve.ServeEngine(params, cfg,
                                            tserve.EngineConfig(**ECFG),
                                            device="cpu")

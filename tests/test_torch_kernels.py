@@ -120,8 +120,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                  torch.ones((1,), dtype=torch.int32), None)
     xf = torch.zeros((2, 8))
     with pytest.raises(ValueError, match="CUDA tensor"):
-        tfsm.fused_slided_matmul_cuda(xf, torch.zeros((4, 6), dtype=torch.int8),
-                                      torch.ones((4, 1)), n_fam=4)
+        tfsm.fused_slided_matmul_cuda(
+            xf, *tfsm.sparse_operand(torch.zeros((4, 12), dtype=torch.int8)),
+            torch.ones((4, 1)), n_fam=4)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfqs.fused_quant_slide_cuda(xf, n_fam=4)
     with pytest.raises(ValueError, match="CUDA tensor"):

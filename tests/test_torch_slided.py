@@ -18,6 +18,8 @@ Pallas kernels they replace, run in interpret mode on the CPU.
   {2, 4}: int8 and w4 bit-exact against the JAX oracle, with and without
   a bias, and within 1e-6 of the Pallas output (its prologue scale comes
   from that same rewrite); the rest at B5's tolerances.
+  The port's weights are the kernel's 2:4 operand; inverted, they equal
+  JAX's ``w_slided`` bit for bit.
 * ``linear.apply`` in ``mode="slided"`` against the JAX ``linear.apply``
   (its jnp path) for every recipe; prepared == lazy; and, a property of
   the port, slided == compressed bit for bit for int8 and w4.
@@ -39,7 +41,7 @@ from repro.kernels import ref as jref
 from repro_torch.convert import to_torch
 from repro_torch.core import linear as tlin, quant as tq, slide as tslide
 from repro_torch.core.patterns import Pattern as TPattern
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import fused_slide_matmul as tfsm, ops, ref
 
 RECIPES = ["none", "int8", "fp8", "w4", "fp8w4"]
 
@@ -191,11 +193,17 @@ def test_slided_matmul_plain_matches_pallas(recipe, activation, n):
         recipe, n, _seed((recipe, activation, n)))
     jp = jlin.prepare({"w": jnp.asarray(w)}, jcfg)
     tp = tlin.prepare({"w": torch.from_numpy(w)}, tcfg)
-    assert set(jp) == set(tp) == {"w_slided", "s_w"}
-    for key in jp:
-        assert_bit_equal(jp[key], tp[key])
+    # the port stores Phi(W) as the kernel's 2:4 operand; inverted, it is
+    # JAX's slided matrix bit for bit
+    assert set(jp) == {"w_slided", "s_w"}
+    assert set(tp) == {"sp_values", "sp_meta", "s_w"}
+    assert_bit_equal(jp["s_w"], tp["s_w"])
     rec = tcfg.recipe
     dec = tcfg.decomposition()
+    gk = tfsm.lifted_width(w.shape[1], n)
+    assert_bit_equal(jp["w_slided"], tfsm.dense_from_operand(
+        tp["sp_values"], tp["sp_meta"], w.shape[0], gk,
+        packed=rec.packed_weights))
     tx, tb, jx = torch.from_numpy(x), torch.from_numpy(bias), jnp.asarray(x)
 
     def pallas(b):
@@ -205,9 +213,10 @@ def test_slided_matmul_plain_matches_pallas(recipe, activation, n):
             act=rec.act, w4=rec.packed_weights))
 
     def port(b):
-        return _np(ref.slided_matmul_quant(tx, tp["w_slided"], tp["s_w"], dec,
-                                           recipe, torch.float32, bias=b,
-                                           activation=activation))
+        return _np(ref.slided_matmul_sparse(tx, tp["sp_values"],
+                                            tp["sp_meta"], tp["s_w"], dec,
+                                            recipe, torch.float32, bias=b,
+                                            activation=activation))
 
     got, want = port(tb), pallas(jnp.asarray(bias))
     if recipe in ("int8", "w4") and activation is None:
@@ -221,9 +230,9 @@ def test_slided_matmul_plain_matches_pallas(recipe, activation, n):
     else:
         tol = 1e-5 * float(np.abs(want).max())
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=tol)
-    via_ops = ops.slided_matmul_quant(tx, tp["w_slided"], tp["s_w"], dec,
-                                      recipe, torch.float32, bias=tb,
-                                      activation=activation)
+    via_ops = ops.slided_matmul_quant(tx, tp["sp_values"], tp["sp_meta"],
+                                      tp["s_w"], dec, recipe, torch.float32,
+                                      bias=tb, activation=activation)
     np.testing.assert_array_equal(_np(via_ops), got)
 
 
@@ -238,7 +247,9 @@ def test_linear_slided_matches_jax(recipe, n):
     tw = {"w": torch.from_numpy(w)}
     got = tlin.apply(tw, torch.from_numpy(x3), tcfg)
     prepared = tlin.prepare(tw, tcfg)
-    assert "w" not in prepared and "w_slided" in prepared
+    assert "w" not in prepared
+    assert set(prepared) == ({"w_slided"} if recipe == "none"
+                             else {"sp_values", "sp_meta", "s_w"})
     np.testing.assert_array_equal(
         _np(tlin.apply(prepared, torch.from_numpy(x3), tcfg)), _np(got))
     if recipe in ("int8", "w4"):
