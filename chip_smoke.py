@@ -5,9 +5,10 @@ root of a checkout, on a machine with one NVIDIA H100.
 Phases (any failed check exits nonzero):
 1. device and build: the card's name and power limit, then the five CUDA
    kernels built from ``src/repro_torch/csrc`` (one nvcc each, together),
-   with ptxas' registers, shared memory and spills of every B1, B2 and
-   B3 instance and, where cuobjdump exists, their HMMA/IMMA counts (B3
-   must hold sparse IMMA.SP);
+   with ptxas' registers, shared memory and spills of every instance (B4
+   and B5 must not spill) and, where cuobjdump exists, their tensor-core
+   instructions (B3 must hold sparse IMMA.SP and no dense IMMA, B5 wgmma
+   IGMMA and f16 HMMA);
 2. B1, the compressed-matmul kernel, against its plain version at every
    h2o-danube-3-4b projection shape x R in {1, 4, prefill_chunk} x
    recipes int8, w4 (bit-equal) and fp8, none (bf16; tolerance below),
@@ -17,11 +18,16 @@ Phases (any failed check exits nonzero):
    2:4 operand of Phi(W)), B4 (quant+lift) and B5 (dense quantized GEMM)
    against their plain versions at the same shapes x R: B3 int8/w4, B4
    and B5 int8 bit-equal, fp8 within two bf16 ulps of max|plain|; the
-   pipeline B4 -> B5 bit-equal to B3 for int8; B3 at R 5/16/17 across
-   its decode/prefill switch, one split-K call launched twice
-   (bit-identical), int8 and w4 weights with planted zeros (a lone
-   non-zero at each window position); the same checks at N = 2, 3 with
-   ragged shapes and f32 inputs; B3 with bias + SiLU;
+   pipeline B4 -> B5 bit-equal to B3 for int8; B5 also at R 16/17/2048
+   across its decode/prefill switch, beside ``torch._int_mm`` (cuBLASLt
+   int8) at R >= 17, and its split-K calls (cluster-summed at prefill,
+   reduce kernel at decode) launched twice, bit-identical; B3 at R
+   5/16/17 across its switch, one split-K call launched twice, int8 and
+   w4 weights with planted zeros (a lone non-zero at each window
+   position); the same checks at N = 2, 3 with ragged shapes and f32
+   inputs; B3 with bias + SiLU; the compute-bound row R = 2048 (B3, B5
+   and ``torch._int_mm`` in turns, B5/B3); the launch floor, a one-block
+   no-op read by the same timer, beside B4;
 3. B2, the paged-attention kernel, against its split plain version at the
    kernel's own split count, at full width (H=32, KVH=8, hd=120, page
    16): decode B=4 up to ~1000 tokens, a 128-lane prefill chunk, and the
@@ -94,14 +100,20 @@ class Timer:
         self.flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
                                  device="cuda")
 
-    def samples(self, fn, iters=10, warmup=2):
-        """The device time of each of ``iters`` calls, in ms."""
+    def samples(self, fn, iters=10, warmup=2, clean=False):
+        """The device time of each of ``iters`` calls, in ms.  The flush
+        writes the buffer, so a call finds L2 full of dirty lines whose
+        write-back competes with its reads; ``clean`` flushes by reading
+        it instead."""
         torch = self.torch
         for _ in range(warmup):
             fn()
         out = []
         for _ in range(iters):
-            self.flush.zero_()
+            if clean:
+                self.flush.view(torch.int64).sum()
+            else:
+                self.flush.zero_()
             torch.cuda._sleep(400_000)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -115,16 +127,20 @@ class Timer:
     def __call__(self, fn, iters=10, warmup=2):
         return sum(self.samples(fn, iters, warmup)) / iters
 
-    def turns(self, kernel, library, iters=10):
-        """Kernel and library timed in turns in one call (kernel, library,
-        library, kernel), so drift of the card between them cancels; the
-        median call time of each, in ms."""
+    def rounds(self, fns, iters=10, clean=False):
+        """Each function timed in turns in one call (in order, then in
+        reverse), so drift of the card between them cancels; the median
+        call time of each, in ms."""
         import statistics
-        k = self.samples(kernel, iters)
-        lib = self.samples(library, iters)
-        lib += self.samples(library, iters)
-        k += self.samples(kernel, iters)
-        return statistics.median(k), statistics.median(lib)
+        got = [self.samples(fn, iters, clean=clean) for fn in fns]
+        for i in reversed(range(len(fns))):
+            got[i] += self.samples(fns[i], iters, clean=clean)
+        return [statistics.median(g) for g in got]
+
+    def turns(self, kernel, library, iters=10):
+        """Kernel and library in turns (kernel, library, library, kernel);
+        the median call time of each, in ms."""
+        return self.rounds([kernel, library], iters)
 
 
 def bound(bytes_moved: float, ops: float, kind: str):
@@ -291,6 +307,7 @@ def phase_slided_kernels(torch, timer):
         "bound_by | max_abs_err")
     gen = torch.Generator(device="cuda").manual_seed(3)
     names = ("B3", "B4", "B5")
+    int_mm_rows = []
     err = dict.fromkeys(names, 0.0)
     step = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                 "bytes_s": 0.0, "ops_s": 0.0, "dense_bytes_s": 0.0}
@@ -311,7 +328,7 @@ def phase_slided_kernels(torch, timer):
         err[name] = max(err[name], e)
 
     def measure(name, recipe, m, k, r, kern, plain, library, nbytes, ops,
-                dense_bytes=None):
+                dense_bytes=None, int_mm=None):
         if library is not None:
             t_k, t_l = timer.turns(kern, library)
         else:
@@ -319,6 +336,15 @@ def phase_slided_kernels(torch, timer):
         t_p = timer(plain, iters=3, warmup=1)
         b_ms, b_by = bound(nbytes, ops, "int8")
         lib = f"{t_l:.4f}" if t_l is not None else "null"
+        if name == "B5" and recipe == "int8" and r == 4:
+            # the same calls after a flush that leaves L2 clean
+            t_kc, t_lc = timer.rounds([kern, library], clean=True)
+            lib += f" (clean L2: kernel {t_kc:.4f}, library {t_lc:.4f})"
+        if int_mm is not None:
+            # the paper's dense baseline: cuBLASLt int8 on the same operands
+            t_k2, t_i = timer.turns(kern, int_mm)
+            lib += f" (kernel {t_k2:.4f} vs torch._int_mm {t_i:.4f})"
+            int_mm_rows.append((m, k, r, t_k2, t_i))
         # B3: the bound over the dense slided matrix, as it was read before
         # the 2:4 operand, for continuity
         old = (f" (dense slided {bound(dense_bytes, ops, 'int8')[0]:.4f})"
@@ -414,7 +440,21 @@ def phase_slided_kernels(torch, timer):
                 check("B5", recipe, m, k, r, b5(), b5_plain())
                 measure("B5", recipe, m, k, r, b5, b5_plain, library,
                         r * k + 4 * r + m * k + 4 * m + r * m * 2,
-                        2 * r * m * k)
+                        2 * r * m * k,
+                        int_mm=(lambda: torch._int_mm(qx.q, qw.q.t()))
+                        if recipe == "int8" and r > 16 else None)
+            if not rec.packed_weights:
+                # B5 across its decode/prefill switch (R <= DECODE_MAX_R)
+                # and at a long prefill, every shape
+                for r in (16, 17, 2048):
+                    qx = rec.quantize_act(torch.randn(
+                        (r, k), generator=gen, device="cuda"))
+                    check("B5", recipe, m, k, r,
+                          qmm.quant_matmul_cuda(qx.q, qx.scale, qw.q,
+                                                qw.scale,
+                                                out_dtype=torch.bfloat16),
+                          ref.quant_matmul(qx.q, qx.scale, qw.q, qw.scale,
+                                           torch.bfloat16))
             if recipe == "int8" and (m, k) == (3840, 3840):
                 # one split-K decode call launched twice: bit-identical
                 x = torch.randn((4, k), generator=gen,
@@ -425,6 +465,25 @@ def phase_slided_kernels(torch, timer):
                 assert torch.equal(y1, y2), "B3 split-K: two launches differ"
                 log(f"B3 split-K decode {m}x{k} R=4: {splits} splits, two "
                     "launches bit-identical")
+                # B5's split-K: summed in a cluster at prefill, by a
+                # second kernel at decode (x too long for shared memory)
+                for r, (mm, kk) in ((PREFILL_CHUNK, (m, k)),
+                                    (16, (m, 10240))):
+                    qx = rec.quantize_act(torch.randn(
+                        (r, kk), generator=gen, device="cuda"))
+                    qw5 = rec.quantize_weight(torch.randn(
+                        (mm, kk), generator=gen, device="cuda"))
+                    splits = qmm.splits_for(r, mm, kk)
+                    assert splits > 1, f"B5 {mm}x{kk} R={r}: one split"
+                    y1, y2 = (qmm.quant_matmul_cuda(
+                        qx.q, qx.scale, qw5.q, qw5.scale,
+                        out_dtype=torch.bfloat16) for _ in range(2))
+                    assert torch.equal(y1, y2), \
+                        f"B5 split-K {mm}x{kk} R={r}: two launches differ"
+                    check("B5", recipe, mm, kk, r, y1, ref.quant_matmul(
+                        qx.q, qx.scale, qw5.q, qw5.scale, torch.bfloat16))
+                    log(f"B5 split-K {mm}x{kk} R={r}: {splits} splits, two "
+                        "launches bit-identical")
             # R across the decode/prefill switch (R <= DECODE_MAX_R)
             if (m, k) == (3840, 3840):
                 for r in (5, 16, 17):
@@ -511,12 +570,14 @@ def phase_slided_kernels(torch, timer):
                         q_ref, s_ref = ref.fused_quant_slide(x, dec, fp8=fp8)
                         check("B4", recipe, m, k, r, q, q_ref)
                         check("B4", recipe, m, k, r, s_x, s_ref)
+                        y5 = qmm.quant_matmul_cuda(q, s_x, ws, p["s_w"],
+                                                   out_dtype=torch.bfloat16)
+                        check("B5", recipe, m, k, r, y5, ref.quant_matmul(
+                            q, s_x, ws, p["s_w"], torch.bfloat16))
                         if recipe == "int8":
-                            assert torch.equal(qmm.quant_matmul_cuda(
-                                q, s_x, ws, p["s_w"],
-                                out_dtype=torch.bfloat16), y), \
+                            assert torch.equal(y5, y), \
                                 f"B4->B5 != B3 at {z}:{l} {m}x{k} R={r}"
-    log(f"N = 2, 3 and ragged shapes: {cases} B3/B4 cases held (w4: B3 "
+    log(f"N = 2, 3 and ragged shapes: {cases} B3/B4/B5 cases held (w4: B3 "
         "only)")
 
     # the epilogue: bias + SiLU at one shape, against the plain version
@@ -541,6 +602,60 @@ def phase_slided_kernels(torch, timer):
     del w, p
     torch.cuda.empty_cache()
 
+    # the compute-bound row: a long prefill, R = 2048 (int8).  B3, B5 and
+    # cuBLASLt's int8 GEMM in turns; B5 / B3 is the ratio the paper's
+    # 4/3 speaks of (dense time over sparse time is 1.33 there)
+    cfg = sl.SparsityConfig(pattern=(6, 8), mode="slided", recipe="int8")
+    rec, dec = cfg.recipe, cfg.decomposition()
+    r = 2048
+    log(f"== compute-bound row, R = {r}, int8: B3 / B5 / torch._int_mm ms "
+        "in turns, bound ms, B5 / B3 ==")
+    for m, k in ((3840, 3840), (10240, 3840)):
+        w = (torch.randn((m, k), generator=gen, device="cuda")
+             * k ** -0.5).to(torch.bfloat16)
+        p = sl.prepare({"w": w}, cfg)
+        qw = rec.quantize_weight(packer.prune_to_pattern(w, dec.source))
+        x = torch.randn((r, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        qx = rec.quantize_act(x)
+
+        def b3():
+            return fsm.fused_slided_matmul_cuda(
+                x, p["sp_values"], p["sp_meta"], p["s_w"], n_fam=4,
+                out_dtype=torch.bfloat16)
+
+        def b5():
+            return qmm.quant_matmul_cuda(qx.q, qx.scale, qw.q, qw.scale,
+                                         out_dtype=torch.bfloat16)
+        check("B3", "int8", m, k, r, b3(), ref.slided_matmul_sparse(
+            x, p["sp_values"], p["sp_meta"], p["s_w"], dec, rec,
+            torch.bfloat16))
+        check("B5", "int8", m, k, r, b5(), ref.quant_matmul(
+            qx.q, qx.scale, qw.q, qw.scale, torch.bfloat16))
+        t3, t5, ti = timer.rounds(
+            [b3, b5, lambda: torch._int_mm(qx.q, qw.q.t())])
+        ops = 2 * r * m * k
+        b3_ms = bound(operand_bytes(p) + r * k * 2 + r * m * 2, ops * 0.75,
+                      "int8")[0]
+        b5_ms = bound(r * k + 4 * r + m * k + 4 * m + r * m * 2, ops,
+                      "int8")[0]
+        log(f"R={r} {m}x{k}: B3 {t3:.4f} (bound {b3_ms:.4f}) B5 {t5:.4f} "
+            f"(bound {b5_ms:.4f}) torch._int_mm {ti:.4f} ms; B5/B3 "
+            f"{t5 / t3:.3f}, B5/_int_mm {t5 / ti:.3f}")
+        int_mm_rows.append((m, k, r, t5, ti))
+        del w, p, qw
+    torch.cuda.empty_cache()
+
+    # B4's floor: the same timer around a one-block launch that does
+    # nothing, the least a decode-sized call can read
+    floor = timer(fqs.noop_cuda)
+    step["B4"]["floor_ms"] = floor
+    log(f"launch floor (one-block no-op, same timer): {floor:.4f} ms a call, "
+        f"{169 * floor:.3f} ms for 169 calls")
+    for m, k, r, t5, ti in int_mm_rows:
+        log(f"B5 vs torch._int_mm {m}x{k} R={r}: {t5:.4f} / {ti:.4f} ms "
+            f"({t5 / ti:.3f})")
+
     for name, what in (("B3", "169 slided linears"),
                        ("B4", "169 quant+lift calls"),
                        ("B5", "169 dense int8 linears")):
@@ -552,7 +667,9 @@ def phase_slided_kernels(torch, timer):
                else "null")
         old = (f"; bound over the dense slided matrix "
                f"{max(st['dense_bytes_s'], st['ops_s']) * 1e3:.3f} ms"
-               if name == "B3" else "")
+               if name == "B3" else
+               f"; launch floor {169 * st['floor_ms']:.3f} ms"
+               if name == "B4" else "")
         log(f"{name} per decode step (int8, R=4, {what}): kernel "
             f"{st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms, library "
             f"{lib}, bound {st['bound_ms']:.3f} ms ({st['bound_by']}){old}")
@@ -930,32 +1047,38 @@ def main() -> int:
                   if "spill" in line and " 0 bytes spill stores" not in line]
         log(f"ptxas {name}: {len(regs)} kernels, max {max(regs, default=0)} "
             f"registers, {len(spills)} with spills")
-        if name in ("compressed_matmul", "paged_attention",
-                    "fused_slided_matmul"):
-            # the redesigned kernels: every instance's registers, shared
-            # memory and spills as ptxas reports them
-            entry = ""
-            for line in text.splitlines():
-                if "Compiling entry function" in line:
-                    entry = line.split("'")[1] if "'" in line else line
-                elif "Used" in line or "spill" in line:
-                    log(f"  ptxas {name} {entry[:90]}: {line.strip()}")
+        # every instance's registers, shared memory and spills as ptxas
+        # reports them; B4 and B5 must not spill
+        entry = ""
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "Used" in line or "spill" in line:
+                log(f"  ptxas {name} {entry[:90]}: {line.strip()}")
+        if name in ("fused_quant_slide", "quant_matmul"):
+            assert not spills, f"{name} spills: {spills}"
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if Path(cuobjdump).exists():
         # the tensor-core instances exist: mma.sync in the SASS of B1 (IMMA,
         # int8 prefill) and B2 (HMMA, bf16 prefill chunk), mma.sp in B3's
-        # int8/w4 instances (the sparse IMMA form, IMMA.SP)
+        # int8/w4 instances (the sparse IMMA form, IMMA.SP), and in B5's
+        # prefill instances wgmma (IGMMA, int8) and f16 mma.sync (HMMA,
+        # e4m3 operands)
         for name in ("compressed_matmul", "paged_attention",
-                     "fused_slided_matmul"):
+                     "fused_slided_matmul", "quant_matmul"):
             sass = subprocess.run([cuobjdump, "-sass", str(libs[name])],
                                   capture_output=True, text=True,
                                   timeout=120).stdout
-            sparse = sass.count("IMMA.SP")
+            sparse, igmma = sass.count("IMMA.SP"), sass.count("IGMMA")
             log(f"SASS {name}: {sass.count('HMMA')} HMMA, "
-                f"{sass.count('IMMA')} IMMA instructions, {sparse} of them "
-                "sparse (IMMA.SP)")
+                f"{sass.count('IMMA')} IMMA ({sparse} of them sparse, "
+                f"IMMA.SP), {igmma} IGMMA instructions")
             if name == "fused_slided_matmul":
                 assert sparse > 0, "B3 has no sparse IMMA instruction"
+                assert sass.count("IMMA") == sparse, "B3 has dense IMMA"
+            if name == "quant_matmul":
+                assert igmma > 0, "B5 has no wgmma (IGMMA) instruction"
+                assert sass.count("HMMA") > 0, "B5 has no f16 mma (HMMA)"
     else:
         log("SASS: cuobjdump not found, tensor-core instructions not counted")
 

@@ -60,8 +60,9 @@
 //   gathers the lifted activations from shared memory.
 //
 // The epilogue runs in the JAX order: acc -> f32, * s_x, * s_w, + bias,
-// activation, cast, with __fmul_rn/__fadd_rn (quant_gemm.cuh's helpers).
-#include "quant_gemm.cuh"
+// activation, cast, with __fmul_rn/__fadd_rn (epilogue.cuh).
+#include "epilogue.cuh"
+#include "quant_lift.cuh"
 
 #include <algorithm>
 
@@ -221,8 +222,7 @@ __device__ __forceinline__ void lift_range(uint8_t* buf,
               *reinterpret_cast<const __nv_bfloat162*>(&raw[u][p].x));
         else
           f = *reinterpret_cast<const float2*>(&raw[u][p]);
-        qp[p] = quant_lift::quant1<false>(f.x, q)
-                | (quant_lift::quant1<false>(f.y, q) << 8);
+        qp[p] = quant_lift::quant_pair<false>(f, q);
       }
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
@@ -232,7 +232,7 @@ __device__ __forceinline__ void lift_range(uint8_t* buf,
         *reinterpret_cast<uint32_t*>(
             buf + (local >> 6) * (SKS * NT * FRAG)
             + (((w >> 4) * NT + (n >> 3)) * 32 + 4 * (n & 7) + (w & 3)) * 16
-            + 4 * ((w >> 2) & 3)) = qp[j] | (qp[j + 1] << 16);
+            + 4 * ((w >> 2) & 3)) = quant_lift::lifted_word(qp[j], qp[j + 1]);
       }
     }
   }
@@ -362,14 +362,8 @@ __global__ void __launch_bounds__(32 * WM * WN) sparse_kernel(
           part[blockIdx.z * total + o] = acc[i][j][c];
           continue;
         }
-        float y = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][c]),
-                                      rq[nl].scale), sw[m]);
-        if (bias != nullptr) y = __fadd_rn(y, bias[m]);
-        y = quant_gemm::activate(y, act);
-        if (out_bf16)
-          static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(y);
-        else
-          static_cast<float*>(out)[o] = y;
+        epi::store(__int2float_rn(acc[i][j][c]), rq[nl].scale, sw[m], bias, m,
+                   act, out, o, out_bf16);
       }
 }
 
@@ -401,14 +395,8 @@ __global__ void __launch_bounds__(256) reduce_kernel(
     int s = 0;
     for (int z = 0; z < splits; ++z) s += part[z * total + i];
     const int r = static_cast<int>(i / M), m = static_cast<int>(i % M);
-    const float sx = quant_lift::row_quant<false>(amax[r]).scale;
-    float y = __fmul_rn(__fmul_rn(__int2float_rn(s), sx), sw[m]);
-    if (bias != nullptr) y = __fadd_rn(y, bias[m]);
-    y = quant_gemm::activate(y, act);
-    if (out_bf16)
-      static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(y);
-    else
-      static_cast<float*>(out)[i] = y;
+    epi::store(__int2float_rn(s), quant_lift::row_quant<false>(amax[r]).scale,
+               sw[m], bias, m, act, out, i, out_bf16);
   }
 }
 
@@ -454,7 +442,7 @@ __global__ void __launch_bounds__(32 * F8_WARPS) fp8_kernel(
                                               n_fam, x_bf16, rq[n]);
 #pragma unroll
       for (int d = 0; d < 4; ++d)
-        xs[n][4 * w + d] = quant_gemm::byte_to_f<true>((v >> (8 * d)) & 0xffu);
+        xs[n][4 * w + d] = epi::byte_to_f<true>((v >> (8 * d)) & 0xffu);
     }
     __syncthreads();
     ATile tile;
@@ -496,14 +484,8 @@ __global__ void __launch_bounds__(32 * F8_WARPS) fp8_kernel(
       v += __shfl_xor_sync(FULL, v, 2);
       const int m = mt * 16 + g + 8 * h;
       if (t != 0 || m >= M || n >= nr) continue;
-      float y = __fmul_rn(__fmul_rn(v, rq[n].scale), sw[m]);
-      if (bias != nullptr) y = __fadd_rn(y, bias[m]);
-      y = quant_gemm::activate(y, act);
-      const size_t o = static_cast<size_t>(r0 + n) * M + m;
-      if (out_bf16)
-        static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(y);
-      else
-        static_cast<float*>(out)[o] = y;
+      epi::store(v, rq[n].scale, sw[m], bias, m, act, out,
+                 static_cast<size_t>(r0 + n) * M + m, out_bf16);
     }
 }
 

@@ -1,7 +1,10 @@
 // Per-row quantization + activation lifting (paper Alg. 1), the device
 // functions shared by the fused slided matmul's prologue
 // (fused_slided_matmul.cu) and the standalone quant+lift kernel
-// (fused_quant_slide.cu), so the two cannot drift apart.
+// (fused_quant_slide.cu), so the two cannot drift apart.  Both lift one
+// source group of 2N columns at a time: each pair quantized once
+// (quant_pair), the N - 1 lifted words of the group built from
+// neighbouring pairs (lifted_word).
 //
 // Bit-exact against repro_torch.core.quant (and so against the JAX
 // quantize_rows of repro/kernels/fused_quant_slide.py):
@@ -114,8 +117,22 @@ __device__ __forceinline__ uint32_t quant1(float x, RowQuant q) {
   }
 }
 
+// a source pair (x0, x1), quantized: two bytes, x0 in the low one
+template <bool FP8>
+__device__ __forceinline__ uint32_t quant_pair(float2 f, RowQuant q) {
+  return quant1<FP8>(f.x, q) | (quant1<FP8>(f.y, q) << 8);
+}
+
+// the lifted word of window (g, j), made of the quantized source pairs j
+// and j + 1 of group g
+__device__ __forceinline__ uint32_t lifted_word(uint32_t pair_j,
+                                                uint32_t pair_j1) {
+  return pair_j | (pair_j1 << 16);
+}
+
 // lifted word w of a row of the (2n-2):2n family: its four quantized
-// bytes, little-endian
+// bytes, little-endian (one word at a time: each source pair is quantized
+// once per word that holds it)
 template <bool FP8>
 __device__ __forceinline__ uint32_t quant_lift_word(const void* row, int w,
                                                     int n, bool bf16,

@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` compiles, with its own nvcc process, into
 ``build/repro_torch/<name>-<hash>.so`` at the root of the checkout; the
 hash covers the source, every header under ``csrc/`` and the flags, so an
 edited source or header never loads a stale library.  The sources have a plain C interface (no PyTorch headers),
-which keeps a build to seconds.  Nothing here runs at import time: the
+which keeps a build to seconds.  Nothing links ``-lcuda``: the one
+driver-API call (``cuTensorMapEncodeTiled``, the TMA descriptors of
+``quant_matmul.cu``) is reached through the runtime's
+``cudaGetDriverEntryPoint``.  Nothing here runs at import time: the
 CPU tests import every module, and this machine may have no nvcc.
 """
 from __future__ import annotations

@@ -108,15 +108,45 @@ def fused_quant_slide(x: torch.Tensor, dec, fp8: bool = False,
     return lift_pairs(qx.q, n), qx.scale
 
 
+def fused_quant_slide_spans(x: torch.Tensor, dec, spans, fp8: bool = False):
+    """B4's dataflow (``fused_quant_slide.spans``): each block of a row's
+    cluster takes max|x| over its span [c0, c1) of source columns, the
+    row's absmax is the max of those (order-free: equal to
+    ``quant.absmax`` bit for bit) floored at 1e-8, then the row is
+    quantized and lifted.  x: [R, K] -> (q [R, gamma*K], scale [R, 1])."""
+    xa = x.to(torch.float32).abs()
+    zero = torch.zeros((x.shape[0], 1), dtype=torch.float32, device=x.device)
+    parts = [xa[:, c0:c1].amax(-1, keepdim=True) if c1 > c0 else zero
+             for c0, c1 in spans]
+    a = torch.clamp_min(torch.stack(parts).amax(0), 1e-8)
+    return fused_quant_slide(x, dec, fp8=fp8, absmax=a)
+
+
+def quant_matmul_split(q_x: torch.Tensor, s_x: torch.Tensor,
+                       q_w: torch.Tensor, s_w: torch.Tensor, share: int,
+                       out_dtype=torch.float32, bias=None,
+                       activation: str | None = None) -> torch.Tensor:
+    """B5's dataflow (``quant_matmul.share_for``): the contraction cut into
+    shares of ``share`` columns, each share's partial dot, the partials
+    summed in split order, then the epilogue.  Integer partials are exact,
+    so this equals :func:`quant_matmul` bit for bit; with an e4m3 operand
+    it is the fp32 sum in the kernel's split order."""
+    acc = None
+    for k0 in range(0, q_x.shape[1], share):
+        p = quant.quant_dot(q_x[:, k0:k0 + share], q_w[:, k0:k0 + share])
+        acc = p if acc is None else acc + p
+    y = acc.to(torch.float32) * s_x * s_w[:, 0][None, :]
+    return epilogue(y, bias, activation).to(out_dtype)
+
+
 def quant_matmul(q_x: torch.Tensor, s_x: torch.Tensor, q_w: torch.Tensor,
                  s_w: torch.Tensor, out_dtype=torch.float32, bias=None,
                  activation: str | None = None) -> torch.Tensor:
     """Quantized GEMM + dequant epilogue ``(q_x @ q_w^T) * s_x * s_w``,
     then bias and activation: int32-exact for integer operands, fp32 with
     any e4m3 operand.  q_x: [R, K]; s_x: [R, 1]; q_w: [M, K]; s_w: [M, 1]."""
-    acc = quant.quant_dot(q_x, q_w)
-    y = acc.to(torch.float32) * s_x * s_w[:, 0][None, :]
-    return epilogue(y, bias, activation).to(out_dtype)
+    return quant_matmul_split(q_x, s_x, q_w, s_w, max(1, q_x.shape[1]),
+                              out_dtype, bias, activation)
 
 
 def slided_matmul_quant(x: torch.Tensor, w_slided_q: torch.Tensor,
