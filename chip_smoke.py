@@ -37,16 +37,33 @@ Phases (any failed check exits nonzero):
    held bit-identical; kernel and SDPA timed in turns;
 4. the engine: full 24-layer h2o-danube-3-4b, 6:8 compressed, int8
    recipe, bf16 activations and KV pages, fused paged attention, serving
-   4 staggered requests; both kernels' launch counts must rise during
-   ``run()``, every request must finish OK, the page accounting must
-   balance, and each request's last-prefill logits must agree with the
-   one-shot prefill on the same weights, within a fixed limit that two
-   planted faults, read in the same run, must exceed;
+   4 staggered requests, once eager and once with each step captured as
+   a CUDA graph in ``warmup``; one prefill chunk and one decode step of
+   each must dispatch under ``set_sync_debug_mode("error")`` (no host
+   synchronization on the step path); the graphed engine must hold one
+   capture per step and give the eager run's streams, first-token logits
+   (bit for bit) and kernel launch counts; both kernels' counts must rise
+   during ``run()``, every request must finish OK, the page accounting
+   must balance, and each request's last-prefill logits must agree with
+   the one-shot prefill on the same weights, within a fixed limit that
+   two planted faults, read in the same run, must exceed (the "short"
+   fault patched in before its engine captures);
 5. the slided engine: the same model, weights and traffic in
-   ``mode="slided"``; B3's count must rise during ``run()`` and B1's stay
-   at 0, every request must finish OK, and the streams and first-token
-   logits must equal the compressed engine's bit for bit;
-6. a ``kernels`` JSON line, the card line, and the final result line.
+   ``mode="slided"``, eager and graphed as above; B3's count must rise
+   during ``run()`` and B1's stay at 0, and the streams and first-token
+   logits must equal the compressed engine's bit for bit.  Then the
+   overlapped loop (``async_loop``) on the same traffic: streams,
+   scheduler trace and launch counts equal to the synchronous graphed
+   run, with lookahead steps; a ``torch.profiler`` trace of decode steps,
+   eager then graphed (host share, device idle share, top device
+   operations); and eager, graphed and overlapped decode tok/s timed in
+   turns;
+6. the float gate: the engine at recipe "none" with fp32 activations and
+   KV pages (full width, depth cut to FLOAT_LAYERS), graphed, against
+   one-shot ``generate``: identical streams, or each first divergence a
+   tie within rounding (one-shot top-2 margin below max|engine -
+   one-shot| of the logits there);
+7. a ``kernels`` JSON line, the card line, and the final result line.
 
 It imports neither JAX nor the JAX package, and prints every table it
 measures on standard output.
@@ -814,6 +831,8 @@ def phase_b2(torch, timer):
 
 # ----------------------------------------------------------------- phase 4
 PLENS, NEW_TOKENS = [53, 117, 211, 298], 32
+FLOAT_LAYERS = 8               # depth of the float-recipe gate's model
+PROFILE_STEPS = 8              # decode steps in each profiler window
 
 
 def _counters():
@@ -827,21 +846,27 @@ def _counters():
             "quant_matmul": quant_matmul}
 
 
-def _engine_setup(torch, mode):
-    """The full 24-layer model at 6:8 in ``mode``, int8, bf16, fused
-    attention, packed from the seed-0 init; the 4 staggered prompts drawn
-    from the same generator; the engine warmed up."""
+def _engine_setup(torch, mode, recipe="int8", dtype=None, num_layers=None):
+    """h2o-danube-3-4b at full width, 6:8 in ``mode``, fused attention,
+    packed from the seed-0 init (bf16 activations and KV pages as
+    registered, or ``dtype`` for both; the registered 24 layers, or
+    ``num_layers``); the 4 staggered prompts drawn from the same
+    generator.  Returns (cfg, params, prompts, ecfg)."""
     import dataclasses
     from repro_torch.configs import registry
     from repro_torch.core.linear import SparsityConfig
     from repro_torch.models import model as M
     from repro_torch.runtime import serve_loop
 
+    base = registry.get("h2o-danube-3-4b")
+    assert base.dtype == "bfloat16" and base.kv_cache_dtype == "bfloat16"
+    over = {"dtype": dtype, "kv_cache_dtype": dtype} if dtype else {}
+    if num_layers:
+        over["num_layers"] = num_layers
     cfg = dataclasses.replace(
-        registry.get("h2o-danube-3-4b"),
-        sparsity=SparsityConfig(pattern=(6, 8), mode=mode, recipe="int8",
+        base, **over,
+        sparsity=SparsityConfig(pattern=(6, 8), mode=mode, recipe=recipe,
                                 fused_attention=True))
-    assert cfg.dtype == "bfloat16" and cfg.kv_cache_dtype == "bfloat16"
     t0 = time.time()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = serve_loop.pack_params(M.init(cfg, gen), cfg)
@@ -851,29 +876,85 @@ def _engine_setup(torch, mode):
                  for blk in ("mixer", "ffn") for lin in lp[blk].values()
                  for t in lin.values()) + sum(
         t.numel() * t.element_size() for t in params["lm_head"].values())
-    log(f"init + pack: {time.time() - t0:.1f} s; {mode} linears "
-        f"{packed / 1e9:.2f} GB; device memory "
+    log(f"init + pack: {time.time() - t0:.1f} s; {cfg.num_layers} layers, "
+        f"{mode} {recipe} linears {packed / 1e9:.2f} GB; device memory "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
                              device="cuda").tolist() for n in PLENS]
     ecfg = serve_loop.EngineConfig(max_batch=4, page_size=16, num_pages=128,
                                    max_seq_len=max(PLENS) + NEW_TOKENS,
                                    prefill_chunk=PREFILL_CHUNK)
-    eng = serve_loop.ServeEngine(params, cfg, ecfg, device="cuda")
-    log(f"warmup: {eng.warmup():.2f} s")
-    return cfg, params, prompts, ecfg, eng
+    return cfg, params, prompts, ecfg
 
 
-def _engine_run(eng, prompts):
+def _sync_free(torch, eng, label):
+    """One prefill chunk and one decode step of ``eng`` dispatched under
+    ``torch.cuda.set_sync_debug_mode("error")``, their outputs' copy to the
+    host queued too: any host synchronization on the step path raises.
+    The dummy inputs write only the spare page."""
+    import numpy as np
+    ec = eng.ecfg
+    ptab = eng.kv.page_table_array()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._prefill(np.zeros((1, ec.prefill_chunk)), ptab[:1], 0, 0)
+        eng._decode(np.zeros(ec.max_batch), ptab, np.zeros(ec.max_batch),
+                    np.zeros(ec.max_batch))
+        eng._to_host(eng._steps["decode"].out[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"sync check {label}: a prefill chunk and a decode step ran under "
+        "set_sync_debug_mode('error'), no host synchronization")
+
+
+def _sync_check_bites(torch):
+    """The control of the sync check: boolean-mask indexing (the form of
+    the pool scatter the engine dropped) must raise under the mode."""
+    x = torch.arange(8, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x[x > 3]
+        bites = False
+    except RuntimeError:
+        bites = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bites, "set_sync_debug_mode('error') let a nonzero through"
+    log("sync check control: boolean-mask indexing raises under "
+        "set_sync_debug_mode('error')")
+
+
+def _engine_pair(torch, cfg, params, ecfg):
+    """An eager engine (private ``_eager``: the steps run op by op) and a
+    graphed one (each step captured once in ``warmup``) on the same
+    weights, both warmed up and put through the sync check."""
+    from repro_torch.runtime import serve_loop
+    eager = serve_loop.ServeEngine(params, cfg, ecfg, device="cuda",
+                                   _eager=True)
+    log(f"warmup eager: {eager.warmup():.2f} s")
+    graphed = serve_loop.ServeEngine(params, cfg, ecfg, device="cuda")
+    log(f"warmup graphed (eager pass + capture): {graphed.warmup():.2f} s; "
+        f"captures {graphed.captures}")
+    assert eager.captures == {"prefill": 0, "decode": 0}, eager.captures
+    assert graphed.captures == {"prefill": 1, "decode": 1}, graphed.captures
+    _sync_free(torch, eager, "eager")
+    _sync_free(torch, graphed, "graphed")
+    return eager, graphed
+
+
+def _engine_run(eng, prompts, label, split=True):
     """Serve the prompts with every kernel count set to 0 just before
-    ``run()``; returns (completions, launches read just after)."""
+    ``run()``; returns (completions, launches read just after).  With
+    ``split`` each step ends in a synchronize, so the run's wall time
+    splits into prefill and decode steps (a step that advanced the
+    scheduler's decode count is a decode step)."""
+    import torch
     counters = _counters()
     for i, p in enumerate(prompts):
         eng.submit(p, NEW_TOKENS, rid=i, arrival=2 * i)
-    import torch
-    # the split of the run's wall time: each step ends in a synchronize
-    # (most already do, fetching tokens), and a step that advanced the
-    # scheduler's decode count is a decode step, the rest prefill chunks
     marks = []
 
     def on_step(e, k):
@@ -883,21 +964,42 @@ def _engine_run(eng, prompts):
     for mod in counters.values():
         mod.reset_counts()
     t_prev, d_prev = time.perf_counter(), 0
-    out = eng.run(on_step=on_step)
+    out = eng.run(on_step=on_step if split else None)
     launches = {name: mod.launch_count() for name, mod in counters.items()}
-    split = {"prefill": 0.0, "decode": 0.0}
-    for t, d in marks:
-        split["decode" if d > d_prev else "prefill"] += t - t_prev
-        t_prev, d_prev = t, d
     s = eng.stats
-    log(f"run: {s.steps} steps, {s.decode_steps} decode steps, "
-        f"{s.decode_tokens} decode tokens in {s.wall_s:.3f} s (prefill "
-        f"steps {split['prefill']:.3f} s, decode steps "
-        f"{split['decode']:.3f} s); launches {launches}")
+    if split:
+        part = {"prefill": 0.0, "decode": 0.0}
+        for t, d in marks:
+            part["decode" if d > d_prev else "prefill"] += t - t_prev
+            t_prev, d_prev = t, d
+        how = (f" (prefill steps {part['prefill']:.3f} s, decode steps "
+               f"{part['decode']:.3f} s)")
+    else:
+        how = " (no per-step synchronize)"
+    log(f"run {label}: {s.steps} steps, {s.decode_steps} decode steps, "
+        f"{s.decode_tokens} decode tokens in {s.wall_s:.3f} s{how}; "
+        f"{s.decode_tok_s:.2f} tok/s; launches {launches}")
     assert sorted(out) == list(range(len(prompts)))
     assert all(c.ok and len(c.tokens) == NEW_TOKENS for c in out.values())
     eng.kv.check()
     return out, launches
+
+
+def _hold_graphed(torch, eager, e_out, e_launches, graphed, g_out,
+                  g_launches, label):
+    """The graphed run equals the eager run of the same engine: streams,
+    first-token logits bit for bit, and every kernel's launch count."""
+    assert graphed.captures == {"prefill": 1, "decode": 1}, graphed.captures
+    for i, c in g_out.items():
+        assert c.tokens == e_out[i].tokens, \
+            f"{label} request {i}: graphed stream differs from eager"
+        got, want = graphed.first_logits[i], eager.first_logits[i]
+        assert torch.equal(got, want), \
+            f"{label} request {i}: graphed first logits differ from eager " \
+            f"(max {(got.float() - want.float()).abs().max().item()})"
+    assert g_launches == e_launches, (g_launches, e_launches)
+    log(f"{label} graphed == eager: {len(g_out)} streams and first-token "
+        f"logits bit-equal, launches equal {g_launches}; 1 capture per step")
 
 
 def phase_engine(torch, card):
@@ -906,16 +1008,23 @@ def phase_engine(torch, card):
     from repro_torch.runtime import serve_loop
 
     log("== engine: h2o-danube-3-4b 24L d3840, 6:8 compressed int8, bf16, "
-        "fused attention ==")
-    cfg, params, prompts, ecfg, eng = _engine_setup(torch, "compressed")
-    out, launches = _engine_run(eng, prompts)
+        "fused attention; eager, then each step a CUDA graph ==")
+    _sync_check_bites(torch)
+    cfg, params, prompts, ecfg = _engine_setup(torch, "compressed")
+    eager, eng = _engine_pair(torch, cfg, params, ecfg)
+    e_out, e_launches = _engine_run(eager, prompts, "eager")
+    out, launches = _engine_run(eng, prompts, "graphed")
     log(f"B1 weight tiles decompressed {smm.decompress_count()}")
     assert launches["compressed_matmul"] > 0, launches
     assert launches["paged_attention"] > 0, launches
     assert launches["fused_slided_matmul"] == 0, launches
+    _hold_graphed(torch, eager, e_out, e_launches, eng, out, launches,
+                  "compressed")
     s = eng.stats
-    log(f"decode throughput {s.decode_tok_s:.2f} tok/s (decode tokens over "
-        f"run wall time incl. prefill) on {card}")
+    log(f"decode throughput {s.decode_tok_s:.2f} tok/s graphed, "
+        f"{eager.stats.decode_tok_s:.2f} eager (decode tokens over run wall "
+        f"time incl. prefill) on {card}")
+    del eager
 
     # Gate of the last-prefill logits: the relative L2 distance
     # ||engine - one-shot|| / ||one-shot|| of each request, at the fixed
@@ -925,10 +1034,10 @@ def phase_engine(torch, card):
     # difference into a whole step in the next linear, so a sound engine
     # sits above 0 (0.057-0.066).  Two planted faults are read in the same run
     # and must land above the limit, or the gate could not tell them from
-    # that noise: "short", the engine re-run with every query row missing
-    # its newest key (kv_len one short at the paged-attention call), and
-    # "dropped", the engine's logits against the one-shot prefill of the
-    # prompt without its last token.
+    # that noise: "short", a graphed engine captured with every query row
+    # missing its newest key (kv_len one short at the paged-attention
+    # call), and "dropped", the engine's logits against the one-shot
+    # prefill of the prompt without its last token.
     def rel_l2(a, b):
         return ((a - b).norm() / b.norm()).item()
 
@@ -938,13 +1047,15 @@ def phase_engine(torch, card):
         return orig(q, pool, page_table, kv_len - 1, **kw)
 
     kops.paged_attention = short_by_one
-    try:
+    try:  # the patch is in place when the graphs are captured
         bad = serve_loop.ServeEngine(params, cfg, ecfg, device="cuda")
+        bad.warmup()
         for i, p in enumerate(prompts):
             bad.submit(p, 1, rid=i, arrival=2 * i)
         bad.run()
     finally:
         kops.paged_attention = orig
+    assert bad.captures == {"prefill": 1, "decode": 1}, bad.captures
 
     same, total = 0, 0
     read = {"sound": [], "short": [], "dropped": []}
@@ -965,7 +1076,7 @@ def phase_engine(torch, card):
             f"{read['short'][-1]:.5f}, dropped {read['dropped'][-1]:.5f}; "
             f"max|diff|/std {((got - ref).abs().max() / ref.std()).item():.4f}"
             f"; argmax {int(got.argmax())} / {int(ref.argmax())}")
-    log(f"identical tokens vs one-shot generate: {same}/{total} "
+    log(f"identical tokens vs one-shot generate (int8): {same}/{total} "
         f"({same / total:.3f})")
     worst = {k: max(v) for k, v in read.items()}
     log(f"last-prefill logits, worst relative L2: sound {worst['sound']:.5f}"
@@ -983,23 +1094,157 @@ def phase_engine(torch, card):
 
 
 # ----------------------------------------------------------------- phase 5
+def _decode_window(torch, eng, rid0, prompts):
+    """Submit the prompts at once and step until every request decodes
+    (no prefill left); returns the rids."""
+    clock = eng.sched.clock
+    rids = [rid0 + i for i in range(len(prompts))]
+    for rid, p in zip(rids, prompts):
+        eng.submit(p, NEW_TOKENS, rid=rid, arrival=clock)
+    while eng.sched.waiting or any(s.prefilling for s in eng.sched.running):
+        eng.step()
+    torch.cuda.synchronize()
+    return rids
+
+
+def _profile(torch, eng, prompts, rid0, label):
+    """A torch.profiler trace of PROFILE_STEPS decode steps of ``eng``,
+    then as many steps without the profiler.  The trace gives the device
+    time (the union of device activity), the device operations that took
+    the most time and the host runtime calls that did; its window holds
+    the profiler's own cost, which is large for graph launches.  The
+    unprofiled steps give the step's wall time and the host's share of it
+    (the wall time less the host's wait in ``_fetch``, over the wall
+    time); the device idle share is 1 - traced device time over the
+    unprofiled wall time (the window's own idle share is printed too)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    rids = _decode_window(torch, eng, rid0, prompts)
+    d0 = eng.sched.stats.decode_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            with record_function("decode_step"):
+                eng.step()
+        torch.cuda.synchronize()
+    waits, fetch = [], eng._fetch
+
+    def timed_fetch(handle):
+        t = time.perf_counter()
+        arr = fetch(handle)
+        waits.append(time.perf_counter() - t)
+        return arr
+
+    eng._fetch = timed_fetch
+    try:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            eng.step()
+        wall = (time.perf_counter() - t0) * 1e6  # us, as the trace
+    finally:
+        del eng._fetch
+    assert eng.sched.stats.decode_steps - d0 == 2 * PROFILE_STEPS, \
+        "a profiled step was not a decode step"
+    eng.run()
+    assert all(eng.completions[r].ok for r in rids)
+    evs = prof.events()
+    steps = [e for e in evs if e.name == "decode_step"
+             and e.device_type == DeviceType.CPU]
+    assert len(steps) == PROFILE_STEPS, len(steps)
+    lo = min(e.time_range.start for e in steps)
+    hi = max(e.time_range.end for e in steps)
+    dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in evs
+                 if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation)
+    assert dev, f"profile {label}: no device activity recorded"
+    busy, end = 0.0, lo
+    for a, b, _ in dev:
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            busy += b - a
+            end = b
+    window = hi - lo
+
+    def top(events):
+        by = {}
+        for a, b, name in events:
+            if a < hi and b > lo:
+                by[name] = by.get(name, 0.0) + min(b, hi) - max(a, lo)
+        return sorted(by.items(), key=lambda kv: -kv[1])[:8]
+
+    host_calls = [(e.time_range.start, e.time_range.end, e.name) for e in evs
+                  if e.device_type == DeviceType.CPU
+                  and e.name.startswith("cuda")]
+    out = {"step_ms": wall / PROFILE_STEPS / 1e3,
+           "host_share": (wall - 1e6 * sum(waits)) / wall,
+           "idle_share": max(0.0, 1 - busy / wall),
+           "device_ms": busy / PROFILE_STEPS / 1e3}
+    log(f"profile {label}: traced window {window / 1e3:.3f} ms for "
+        f"{PROFILE_STEPS} decode steps, {len(dev)} device activities, device "
+        f"time {busy / 1e3:.3f} ms ({out['device_ms']:.3f} a step), window "
+        f"idle share {1 - busy / window:.3f}; unprofiled {wall / 1e3:.3f} ms "
+        f"({out['step_ms']:.3f} a step), host share {out['host_share']:.3f} "
+        f"(wait in _fetch {sum(waits) * 1e3:.3f} ms), device idle share "
+        f"{out['idle_share']:.3f}")
+    for name, us in top(dev):
+        log(f"  top device op {label}: {us / 1e3:.3f} ms  {name[:100]}")
+    for name, us in top(host_calls)[:3]:
+        log(f"  top host runtime call {label}: {us / 1e3:.3f} ms  {name}")
+    return out
+
+
+def _timed_turns(torch, engines, prompts, want, card):
+    """Decode tok/s of each engine (decode tokens over its run's wall
+    time, prefill included) on the chip_smoke traffic, the engines in
+    turns (in order, then in reverse), each run's streams held to
+    ``want``."""
+    import statistics
+    got = {label: [] for label in engines}
+    order = list(engines) + list(reversed(engines))
+    for turn, label in enumerate(order):
+        eng = engines[label]
+        clock, rid0 = eng.sched.clock, 1000 * (turn + 1)
+        d0 = eng.sched.stats.decode_tokens
+        for i, p in enumerate(prompts):
+            eng.submit(p, NEW_TOKENS, rid=rid0 + i, arrival=clock + 2 * i)
+        out = eng.run()
+        for i in range(len(prompts)):
+            assert out[rid0 + i].tokens == want[i], (label, i)
+        got[label].append((eng.sched.stats.decode_tokens - d0)
+                          / eng.stats.wall_s)
+    med = {label: statistics.median(v) for label, v in got.items()}
+    log(f"decode tok/s in turns ({' '.join(order)}), median of 2, on "
+        f"{card}: " + ", ".join(f"{k} {v:.2f}" for k, v in med.items()))
+    return med
+
+
 def phase_slided_engine(torch, card, compressed):
     """The same model, weights and traffic in mode="slided": every linear,
     the lm_head included, through B3, and B1 never launched.  For int8 the
     two modes sum the same integer products (Phi keeps each kept weight
     once) and B2 is deterministic, so streams and first-token logits must
-    equal the compressed engine's bit for bit."""
+    equal the compressed engine's bit for bit.  Then the overlapped loop
+    (async_loop), a profiler trace of eager and graphed decode steps, and
+    the three engines timed in turns."""
+    import dataclasses
+    from repro_torch.runtime import serve_loop
+
     log("== slided engine: h2o-danube-3-4b 24L d3840, 6:8 slided int8, "
-        "bf16, fused attention ==")
-    cfg, params, prompts, ecfg, eng = _engine_setup(torch, "slided")
-    out, launches = _engine_run(eng, prompts)
+        "bf16, fused attention; eager, graphed, overlapped ==")
+    cfg, params, prompts, ecfg = _engine_setup(torch, "slided")
+    eager, eng = _engine_pair(torch, cfg, params, ecfg)
+    e_out, e_launches = _engine_run(eager, prompts, "eager")
+    out, launches = _engine_run(eng, prompts, "graphed")
     assert launches["fused_slided_matmul"] > 0, launches
     assert launches["paged_attention"] > 0, launches
     assert launches["compressed_matmul"] == 0, launches
+    _hold_graphed(torch, eager, e_out, e_launches, eng, out, launches,
+                  "slided")
     tok_s = eng.stats.decode_tok_s
     log(f"decode throughput {tok_s:.2f} tok/s slided vs "
-        f"{compressed['tok_s']:.2f} tok/s compressed (run wall time incl. "
-        f"prefill) on {card}")
+        f"{compressed['tok_s']:.2f} tok/s compressed, graphed (run wall time "
+        f"incl. prefill) on {card}")
     for i, c in out.items():
         assert c.tokens == compressed["tokens"][i], \
             f"request {i}: slided stream differs from compressed"
@@ -1010,7 +1255,123 @@ def phase_slided_engine(torch, card, compressed):
             f"(max {(got.float() - want.float()).abs().max().item()})"
     log(f"slided == compressed: {len(out)} streams and first-token logits "
         "bit-equal")
-    return launches
+
+    # the overlapped loop: the same traffic, no per-step synchronize
+    overlapped = serve_loop.ServeEngine(
+        params, cfg, dataclasses.replace(ecfg, async_loop=True),
+        device="cuda")
+    log(f"warmup overlapped: {overlapped.warmup():.2f} s")
+    a_out, a_launches = _engine_run(overlapped, prompts, "overlapped",
+                                    split=False)
+    a = overlapped.stats
+    log(f"overlapped loop: lookahead_steps {a.lookahead_steps}, "
+        f"overlap_frac {a.overlap_frac:.4f}, host_gap_s {a.host_gap_s:.6f}, "
+        f"d2h_bytes {a.d2h_bytes} (sync graphed run: host_gap_s "
+        f"{eng.stats.host_gap_s:.6f}, overlap_frac "
+        f"{eng.stats.overlap_frac:.4f}, d2h_bytes {eng.stats.d2h_bytes})")
+    for i, c in a_out.items():
+        assert c.tokens == out[i].tokens, \
+            f"request {i}: overlapped stream differs from the sync run"
+    assert overlapped.sched.trace == eng.sched.trace, \
+        "overlapped scheduler trace differs from the sync run"
+    assert a.lookahead_steps > 0, "the fast path never fired"
+    assert a_launches == launches, (a_launches, launches)
+    assert overlapped.captures == {"prefill": 1, "decode": 1}
+    log(f"overlapped == sync: {len(a_out)} streams and the scheduler trace "
+        f"({len(eng.sched.trace)} entries) equal, launches equal")
+
+    prof = {label: _profile(torch, e, prompts, 100, label)
+            for label, e in (("eager", eager), ("graphed", eng))}
+    want = {i: c.tokens for i, c in out.items()}
+    tok = _timed_turns(torch, {"eager": eager, "graphed": eng,
+                               "overlapped": overlapped}, prompts, want, card)
+    return launches, {"profile": prof, "tok_s": tok}
+
+
+# ----------------------------------------------------------------- phase 6
+def phase_float_gate(torch, card):
+    """The north star's argmax-identity contract on the card: the engine
+    at recipe "none" with fp32 activations and KV pages (B1's float
+    instance, B2 with fp32 queries), graphed, against one-shot
+    ``generate`` on the same weights and prompts.  Streams must be
+    identical; where one diverges, the first divergent position may pass
+    only as a tie within rounding: the one-shot logits' top-2 margin there
+    below max|engine - one-shot| of the logits there."""
+    from repro_torch.models import model as M
+    from repro_torch.runtime import serve_loop
+
+    log(f"== float gate: h2o-danube-3-4b full width cut to {FLOAT_LAYERS} of "
+        f"24 layers, 6:8 compressed, recipe none, fp32 activations and KV "
+        "pages, fused attention, graphed; streams vs one-shot generate ==")
+    cfg, params, prompts, ecfg = _engine_setup(
+        torch, "compressed", recipe="none", dtype="float32",
+        num_layers=FLOAT_LAYERS)
+    eng = serve_loop.ServeEngine(params, cfg, ecfg, device="cuda")
+    log(f"warmup graphed: {eng.warmup():.2f} s")
+    # the logits each decode step sampled from, per request: the decode
+    # step's static output row of each slot that decoded in it
+    rows = {i: [] for i in range(len(prompts))}
+    state = {"decoding": [], "steps": 0}
+
+    def on_step(e, k):
+        if e.sched.stats.decode_steps > state["steps"]:
+            logits = e._steps["decode"].out[1]
+            for rid, slot in state["decoding"]:
+                rows[rid].append(logits[slot].clone())
+            state["steps"] = e.sched.stats.decode_steps
+        state["decoding"] = [(s.rid, s.slot) for s in e.sched.running
+                             if not s.prefilling and not s.done]
+
+    for i, p in enumerate(prompts):
+        eng.submit(p, NEW_TOKENS, rid=i, arrival=2 * i)
+    out = eng.run(on_step=on_step)
+    assert all(c.ok and len(c.tokens) == NEW_TOKENS for c in out.values())
+    eng.kv.check()
+    log(f"run float: {eng.stats.decode_steps} decode steps in "
+        f"{eng.stats.wall_s:.3f} s; {eng.stats.decode_tok_s:.2f} tok/s on "
+        f"{card}")
+    same, total, ties = 0, 0, 0
+    for i, p in enumerate(prompts):
+        tok = torch.tensor([p], dtype=torch.int32, device="cuda")
+        want, _ = serve_loop.generate(params, cfg, tok, NEW_TOKENS)
+        want = want[0].tolist()
+        got = out[i].tokens
+        engine_logits = [eng.first_logits[i]] + rows[i]
+        assert len(engine_logits) == NEW_TOKENS, len(engine_logits)
+        first = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                     None)
+        if first is None:
+            same += NEW_TOKENS
+            total += NEW_TOKENS
+            log(f"request {i}: prompt {len(p)}; {NEW_TOKENS}/{NEW_TOKENS} "
+                "tokens identical to one-shot")
+            continue
+        # the one-shot logits at the first divergent position, by the loop
+        # generate runs (its tokens held to generate's up to there)
+        logits, cache, kv_len = M.prefill(params, cfg, tok,
+                                          max_len=len(p) + NEW_TOKENS)
+        for j in range(first):
+            t = torch.argmax(logits, -1).to(torch.int32)
+            assert int(t[0]) == want[j]
+            logits, cache, kv_len = M.serve_step(params, cfg, t, cache,
+                                                 kv_len)
+        ref = logits[0].float()
+        top2 = torch.topk(ref, 2).values
+        margin = (top2[0] - top2[1]).item()
+        diff = (engine_logits[first].float() - ref).abs().max().item()
+        same += first
+        total += first + 1
+        ties += 1
+        log(f"request {i}: prompt {len(p)}; first divergence at position "
+            f"{first} (engine {got[first]}, one-shot {want[first]}): "
+            f"one-shot top-2 margin {margin:.3e}, max|engine - one-shot| "
+            f"{diff:.3e}")
+        assert margin < diff, \
+            f"request {i}: divergence at {first} is no tie (margin {margin}" \
+            f" >= difference {diff})"
+    log(f"float gate: {same}/{total} compared tokens identical to one-shot "
+        f"generate, {ties} divergences, each a tie within rounding")
+    return {"same": same, "total": total, "ties": ties}
 
 
 def main() -> int:
@@ -1090,7 +1451,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches, compressed = phase_engine(torch, card)
     torch.cuda.empty_cache()  # both packings are ~5.8 GB: free the first
-    slided_launches = phase_slided_engine(torch, card, compressed)
+    slided_launches, slided = phase_slided_engine(torch, card, compressed)
+    torch.cuda.empty_cache()
+    phase_float_gate(torch, card)
+    prof, tok_s = slided["profile"], slided["tok_s"]
+    for label, pr in prof.items():
+        log(f"slided decode step, {label}: {pr['step_ms']:.3f} ms, host "
+            f"share {pr['host_share']:.3f}, device idle share "
+            f"{pr['idle_share']:.3f} ({card})")
+    log(f"slided engine decode tok/s: eager {tok_s['eager']:.2f}, graphed "
+        f"{tok_s['graphed']:.2f}, graphed + overlapped "
+        f"{tok_s['overlapped']:.2f} ({card})")
 
     def entry(name, source, replaces, n, err, st):
         return {"name": name, "route": "cuda",

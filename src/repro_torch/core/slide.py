@@ -28,12 +28,20 @@ def lift_index_map(k: int, z: int, l: int, m: int, n: int) -> np.ndarray:
             + block[None, :]).reshape(-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _lift_index(k: int, z: int, l: int, m: int, n: int,
+                device: torch.device) -> torch.Tensor:
+    """:func:`lift_index_map` on ``device``, copied there once: a step
+    that lifts copies nothing from the host, so a CUDA graph can hold it."""
+    return torch.as_tensor(lift_index_map(k, z, l, m, n), dtype=torch.long,
+                           device=device)
+
+
 def lift(x: torch.Tensor, dec: SlideDecomposition) -> torch.Tensor:
     """Activation lifting Psi: [..., K] -> [..., gamma*K] (paper Eq. 4)."""
-    idx = lift_index_map(x.shape[-1], dec.source.z, dec.source.l,
-                         dec.hw.m, dec.hw.n)
-    return x.index_select(-1, torch.as_tensor(idx, dtype=torch.long,
-                                              device=x.device))
+    return x.index_select(-1, _lift_index(x.shape[-1], dec.source.z,
+                                          dec.source.l, dec.hw.m, dec.hw.n,
+                                          x.device))
 
 
 def phi(w: torch.Tensor, dec: SlideDecomposition) -> torch.Tensor:

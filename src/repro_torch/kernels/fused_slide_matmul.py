@@ -7,7 +7,8 @@ kernel reads Phi(W) as the 2:4 operand of Hopper's sparse tensor cores
 (``mma.sp`` m16n8k64): per window of 4 lifted columns its two kept values
 and their two 2-bit positions, laid out in the instruction's fragment
 order by :func:`sparse_operand` (inverse: :func:`dense_from_operand`).
-``launch_count`` counts the kernel's launches.
+``launch_count`` counts the kernel's launches (a CUDA graph replay adds
+those its capture recorded, ``ops.recorded_launches``).
 """
 from __future__ import annotations
 

@@ -8,6 +8,8 @@ version, and no kernel failure falls back to one.  The kernels are built
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.core import precision
@@ -20,6 +22,43 @@ from . import fused_slide_matmul as _fsm
 from . import paged_attention as _pa
 from . import quant_matmul as _qmm
 from . import slide_matmul as _smm
+
+
+# every kernel's wrapper module, each counting its launches in ``_COUNTS``
+_COUNTED = {"compressed_matmul": _smm, "paged_attention": _pa,
+            "fused_slided_matmul": _fsm, "fused_quant_slide": _fqs,
+            "quant_matmul": _qmm}
+
+
+def launch_counts() -> dict[str, dict[str, int]]:
+    """A copy of every kernel's counters (launches; B1 also its
+    decompressed tiles)."""
+    return {name: dict(mod._COUNTS) for name, mod in _COUNTED.items()}
+
+
+def add_launch_counts(delta: dict[str, dict[str, int]]) -> None:
+    """Add ``delta`` to the counters: the launches of one CUDA graph
+    replay, recorded when the graph was captured."""
+    for name, counts in delta.items():
+        for key, n in counts.items():
+            _COUNTED[name]._COUNTS[key] += n
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Around a CUDA graph capture: the wrappers called inside count as
+    usual, but a capture records launches and runs none, so at exit the
+    counters are put back and the yielded dict holds what the block
+    counted, which each replay of the graph then adds."""
+    before = launch_counts()
+    delta: dict[str, dict[str, int]] = {}
+    try:
+        yield delta
+    finally:
+        after = launch_counts()
+        for name, counts in before.items():
+            _COUNTED[name]._COUNTS.update(counts)
+            delta[name] = {k: after[name][k] - n for k, n in counts.items()}
 
 
 def _family(dec: SlideDecomposition) -> int:

@@ -10,7 +10,8 @@ own blocks into an fp32 partial ``(acc, m, l)`` in scratch allocated here;
 a second kernel merges them in split order.  Written in CUDA C++ rather
 than Triton: it shares the nvcc + ctypes build of the other kernels, and
 the non-power-of-two head_dim (120) is padded in shared memory by hand.
-``launch_count`` counts wrapper calls that launched.
+``launch_count`` counts wrapper calls that launched; a CUDA graph replay
+adds the launches its capture recorded (``ops.recorded_launches``).
 """
 from __future__ import annotations
 

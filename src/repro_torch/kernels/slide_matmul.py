@@ -3,7 +3,8 @@
 The port of ``repro.kernels.slide_matmul.compressed_matmul_pallas``:
 ``y[R, M] = act((x @ decompress(values, indices)^T) (* s_x * s_w) (+ bias))``
 with the slide undone during decompression.  ``launch_count`` counts the
-wrapper's launches.  ``decompress_count`` is the analog of the Pallas
+wrapper's launches (a CUDA graph replay adds those its capture recorded,
+``ops.recorded_launches``).  ``decompress_count`` is the analog of the Pallas
 kernel's decompression counter: weight tiles decompressed into shared
 memory per call.  The int8/w4 decode instance (R <= DECODE_MAX_R) builds
 no tile (0); the int8/w4 prefill instance decompresses each (PF_BM x

@@ -4,10 +4,10 @@ The port of ``repro.launch.serve``, with the same flags plus ``--device``
 (default ``cuda``) and ``--fused-attention``: initializes weights from a
 seeded ``torch.Generator``, runs the offline packer + load-time
 compression, then serves batched requests through the one-shot loop or,
-with ``--engine``, the continuous-batching paged-KV engine.  Flags of
-features not ported yet (``--tp``, ``--prefix-cache``, ``--speculate``,
-``--async``, ``--inject-faults``) are accepted and refused with
-``NotImplementedError``.
+with ``--engine``, the continuous-batching paged-KV engine (``--async``:
+the overlapped loop).  Flags of features not ported yet (``--tp``,
+``--prefix-cache``, ``--speculate``, ``--inject-faults``) are accepted and
+refused with ``NotImplementedError``.
 """
 import argparse
 import dataclasses
@@ -98,6 +98,10 @@ def main(argv=None):
               f"decode {s.decode_tok_s:.1f} tok/s; occupancy "
               f"{s.mean_occupancy:.2f}; evictions {s.evictions}; ok "
               f"{s.completed_ok}; sample: {out[0].tokens[:8]}")
+        if args.async_loop:
+            print(f"[launch.serve] async loop: {s.lookahead_steps} "
+                  f"lookahead dispatches; host gap {s.host_gap_s * 1e3:.1f}"
+                  f"ms; overlap {s.overlap_frac:.2f}; d2h {s.d2h_bytes}B")
         return
 
     toks, stats = serve_loop.generate(params, cfg, tokens, args.new_tokens)

@@ -6,10 +6,13 @@ plain torch; the paged path writes K/V into a shared page pool and attends
 through ``pool_attend``, which dispatches to the paged-attention kernel
 (``sp_cfg.fused_attention``) or to the gather-then-SDPA oracle.
 
-Where JAX silently clamps or drops, torch raises, so the paged writes mask
-and the table reads clamp explicitly.  The pool is updated IN PLACE (the
-JAX version returns a new pool): the engine holds one pool per layer and
+Where JAX silently clamps or drops, torch raises, so the table reads clamp
+explicitly and the dropped writes land in a spare page that no page table
+names (:func:`make_paged_pool`).  The pool is updated IN PLACE (the JAX
+version returns a new pool): the engine holds one pool per layer and
 never needs the old one, and in-place writes save a pool copy per step.
+Nothing on the paged path reads a device value on the host, so a step is
+one stream of launches that a CUDA graph can capture.
 """
 from __future__ import annotations
 
@@ -81,10 +84,12 @@ def _mask_tile(spec: AttnSpec, q_pos, k_pos):
     return torch.where(ok, 0.0, NEG_INF)
 
 
-def _chunked_sdpa(spec: AttnSpec, q, k, v, q_offset: int = 0):
+def _chunked_sdpa(spec: AttnSpec, q, k, v, q_offset=0):
     """q: [B, Sq, H, hd]; k/v: [B, Sk, KVH, hd] -> [B, Sq, H, hd].
     Two-level loop (query chunks, then KV chunks) with running
-    (max, denom, acc): the FlashAttention dataflow in plain torch."""
+    (max, denom, acc): the FlashAttention dataflow in plain torch.
+    ``q_offset``: an int, or an int32 device scalar (a prefill chunk's
+    start)."""
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     rep = h // kvh
@@ -173,21 +178,21 @@ def apply(params, spec: AttnSpec, x, positions, sp_cfg: SparsityConfig,
           cache=None, kv_len=None):
     """Returns (out [B, S, D], cache | None).  With a cache {'k','v'}
     [B, S_max, KVH, hd] this is one decode token written at ``kv_len[0]``
-    (uniform write position, batched decode); the cache is updated in
-    place."""
+    (uniform write position, batched decode), at a device index as JAX's
+    ``dynamic_update_slice``; the cache is updated in place."""
     b, s, _ = x.shape
     q, k, v = _qkv(params, spec, x, positions, sp_cfg)
     if cache is None:
         out = _chunked_sdpa(spec, q, k, v)
     else:
-        pos = int(kv_len[0])
+        pos = kv_len[:1].long()
         if cache["k"].dtype == torch.int8:
             k, ks = _quant_kv(k)
             v, vs = _quant_kv(v)
-            cache["k_scale"][:, pos:pos + 1] = ks
-            cache["v_scale"][:, pos:pos + 1] = vs
-        cache["k"][:, pos:pos + 1] = k.to(cache["k"].dtype)
-        cache["v"][:, pos:pos + 1] = v.to(cache["v"].dtype)
+            cache["k_scale"].index_copy_(1, pos, ks)
+            cache["v_scale"].index_copy_(1, pos, vs)
+        cache["k"].index_copy_(1, pos, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, pos, v.to(cache["v"].dtype))
         if cache["k"].dtype == torch.int8:
             kd = _dequant_kv(cache["k"], cache["k_scale"], x.dtype)
             vd = _dequant_kv(cache["v"], cache["v_scale"], x.dtype)
@@ -235,14 +240,18 @@ def build_prefill_cache(params, spec: AttnSpec, x, positions,
 # ------------------------------------------------------------- paged KV
 def make_paged_pool(spec: AttnSpec, num_pages: int, page_size: int,
                     dtype=torch.bfloat16, device=None):
-    """Physical page pool [num_pages, page_size, KVH, hd] shared by every
-    sequence; int8 pages carry per-(token, kv-head) fp32 scales."""
+    """Physical page pool shared by every sequence: ``num_pages`` pages
+    [page_size, KVH, hd] plus one spare page at index ``num_pages``, the
+    drop id.  The spare receives the writes JAX drops (``mode='drop'``);
+    the page accounting hands out ids below ``num_pages`` only, so no
+    page table names it and nothing reads it.  int8 pages carry
+    per-(token, kv-head) fp32 scales."""
     device = resolve_device(device)
-    shape = (num_pages, page_size, spec.num_kv_heads, spec.head_dim)
+    shape = (num_pages + 1, page_size, spec.num_kv_heads, spec.head_dim)
     pool = {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
     if dtype == torch.int8:
-        sshape = (num_pages, page_size, spec.num_kv_heads, 1)
+        sshape = (num_pages + 1, page_size, spec.num_kv_heads, 1)
         pool["k_scale"] = torch.zeros(sshape, dtype=torch.float32,
                                       device=device)
         pool["v_scale"] = torch.zeros(sshape, dtype=torch.float32,
@@ -250,14 +259,20 @@ def make_paged_pool(spec: AttnSpec, num_pages: int, page_size: int,
     return pool
 
 
+def drop_page(pool) -> int:
+    """The spare page's id, which marks a dropped write: the number of
+    real pages."""
+    return pool["k"].shape[0] - 1
+
+
 def _pool_scatter(pool, page_ids, slot_ids, k_new, v_new):
-    """Write per-token K/V rows [T, KVH, hd] into pages, in place.
-    ``page_id == num_pages`` marks a dropped write (pad tokens, inactive
-    decode slots): JAX drops it with ``mode='drop'``, here it is masked
-    out before indexing."""
-    keep = page_ids < pool["k"].shape[0]
-    pid, sid = page_ids[keep].long(), slot_ids[keep].long()
-    k_new, v_new = k_new[keep], v_new[keep]
+    """Write per-token K/V rows [T, KVH, hd] into pages, in place, with no
+    host synchronization.  ``page_id == drop_page(pool)`` marks a dropped
+    write (pad tokens, inactive decode slots): JAX drops it with
+    ``mode='drop'``; here it lands in the spare page, which no page table
+    names.  Real rows address distinct (page, slot) pairs, and no dropped
+    row shares one with a real row, so the writes never race."""
+    pid, sid = page_ids.long(), slot_ids.long()
     if pool["k"].dtype == torch.int8:
         k_new, ks = _quant_kv(k_new)
         v_new, vs = _quant_kv(v_new)
@@ -310,23 +325,27 @@ def pool_attend(spec: AttnSpec, q, pool, page_table, kv_len,
 
 def paged_prefill_chunk(params, spec: AttnSpec, x, positions,
                         sp_cfg: SparsityConfig, pool, page_table,
-                        start: int, real_len: int, page_size: int):
+                        start: torch.Tensor, real_len: torch.Tensor,
+                        page_size: int):
     """Prefill chunk with history: x [1, C, D] holds prompt tokens
-    [start, start+C), the last C - real_len rows right-padding.  Writes the
-    chunk's K/V into the sequence's pages, then attends causally over
-    everything written so far.  Returns (out [1, C, D], pool)."""
+    [start, start+C), the last C - real_len rows right-padding; ``start``
+    and ``real_len`` are int32 device scalars (0-d), as JAX's i32 scalars,
+    so one captured step serves every chunk.  Writes the chunk's K/V into
+    the sequence's pages, then attends causally over everything written
+    so far.  Returns (out [1, C, D], pool)."""
     b, c, _ = x.shape
-    num_pages, maxp = pool["k"].shape[0], page_table.shape[1]
+    maxp = page_table.shape[1]
     q, k_new, v_new = _qkv(params, spec, x, positions, sp_cfg)
 
     i = torch.arange(c, dtype=torch.int64, device=x.device)
     abs_pos = start + i
-    # pad rows may run past the table: JAX clamps that gather, torch must
+    # pad rows may run past the table: JAX clamps that gather, torch must;
+    # their writes are dropped
     page_ids = page_table[0, torch.clamp(abs_pos // page_size, max=maxp - 1)]
-    page_ids = torch.where(i < real_len, page_ids, num_pages)  # drop pads
+    page_ids = torch.where(i < real_len, page_ids, drop_page(pool))
     _pool_scatter(pool, page_ids, abs_pos % page_size, k_new[0], v_new[0])
 
-    kv_len0 = torch.full((b,), start + 1, dtype=torch.int32, device=x.device)
+    kv_len0 = (start + 1).to(torch.int32).reshape(1).expand(b)
     out = pool_attend(spec, q, pool, page_table, kv_len0, sp_cfg,
                       chunk_start=start)
     return sl.apply(params["wo"], out.reshape(b, c, spec.q_dim), sp_cfg), pool
@@ -339,12 +358,12 @@ def paged_decode_step(params, spec: AttnSpec, x, sp_cfg: SparsityConfig,
     and their outputs are garbage the engine ignores).
     Returns (out [B, 1, D], pool)."""
     b = x.shape[0]
-    num_pages, maxp = pool["k"].shape[0], page_table.shape[1]
+    maxp = page_table.shape[1]
     q, k_new, v_new = _qkv(params, spec, x, kv_len[:, None], sp_cfg)
 
     col = torch.clamp(kv_len.long() // page_size, max=maxp - 1)
     page_ids = page_table[torch.arange(b, device=x.device), col]
-    page_ids = torch.where(active, page_ids, num_pages)
+    page_ids = torch.where(active, page_ids, drop_page(pool))
     _pool_scatter(pool, page_ids, kv_len % page_size, k_new[:, 0],
                   v_new[:, 0])
 

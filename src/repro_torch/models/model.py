@@ -41,8 +41,9 @@ def make_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 
 
 def paged_prefill_chunk(params, cfg: ModelConfig, tokens, cache, page_table,
-                        start: int, real_len: int, page_size: int):
-    """One prompt chunk through the paged cache (decoder-only stacks)."""
+                        start, real_len, page_size: int):
+    """One prompt chunk through the paged cache (decoder-only stacks);
+    ``start``/``real_len`` are int32 device scalars."""
     return transformer.paged_prefill_chunk(params, cfg, tokens, cache,
                                            page_table, start, real_len,
                                            page_size)

@@ -135,9 +135,10 @@ def serve_step(params, cfg: ModelConfig, token, cache, kv_len):
 # ------------------------------------------------------- paged inference
 def make_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      max_batch: int, device=None):
-    """Per unit, per attention layer, a physical page pool
-    [num_pages, page_size, KVH, hd]; one logical page id addresses the same
-    slot in every layer."""
+    """Per unit, per attention layer, a physical page pool of
+    ``num_pages`` pages [page_size, KVH, hd] and the spare page that takes
+    dropped writes (``attention.make_paged_pool``); one logical page id
+    addresses the same slot in every layer."""
     _check_supported(cfg)
     kv = getattr(torch, cfg.kv_cache_dtype)
     device = resolve_device(device)
@@ -149,10 +150,13 @@ def make_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 
 @torch.no_grad()
 def paged_prefill_chunk(params, cfg: ModelConfig, tokens, cache, page_table,
-                        start: int, real_len: int, page_size: int):
+                        start: torch.Tensor, real_len: torch.Tensor,
+                        page_size: int):
     """One prompt chunk of one sequence through the paged cache.
     tokens: [1, C] (rows >= real_len are right-padding); page_table:
-    [1, max_pages].  Returns (logits [1, V] at the last real token, cache)."""
+    [1, max_pages]; start/real_len: int32 device scalars (0-d), so the
+    step reads no value on the host.  Returns (logits [1, V] at the last
+    real token, cache)."""
     b, c = tokens.shape
     xx = _embed(params, cfg, tokens)
     positions = start + torch.arange(c, dtype=torch.int32,
@@ -165,8 +169,8 @@ def paged_prefill_chunk(params, cfg: ModelConfig, tokens, cache, page_table,
             cache[u][key], page_table, start, real_len, page_size)
         xx = _ffn(lp, cfg, xx + y)
     h = layers.rmsnorm(params["final_norm"], xx, cfg.norm_eps)
-    last = min(max(real_len - 1, 0), c - 1)
-    return logits_fn(params, cfg, h[:, last:last + 1])[:, 0], cache
+    last = torch.clamp(real_len - 1, 0, c - 1).long().reshape(1)
+    return logits_fn(params, cfg, h.index_select(1, last))[:, 0], cache
 
 
 @torch.no_grad()

@@ -5,12 +5,15 @@
   slided plain version) and the JAX ``ServeEngine`` (``fused_attention=
   True``, its jnp flash mirror) serve the same weights and the same
   traffic — staggered arrivals plus one request that joins mid-flight —
-  and must emit IDENTICAL greedy streams for both modes and the ``none``
-  and ``int8`` recipes.
+  and must emit IDENTICAL greedy streams for both modes and the ``none``,
+  ``int8``, ``fp8`` and ``w4`` recipes.
 * Slided int8 == compressed int8 in the port, streams and first-token
   logits bit for bit (the gate chip_smoke holds on the card); the slided
   weights, stored as the fused kernel's 2:4 operand, invert to JAX's
   ``w_slided``.
+* The sync-free pool scatter: dropped rows land in the spare page, the
+  real pages bit-equal to JAX's ``mode="drop"`` writes and to the masked
+  form it replaced; no page table names the spare page.
 * The model entry points that allocate run on CUDA unless given a device.
 * Scheduler: the port's verbatim copy makes the same decisions as
   ``repro.runtime.scheduler`` on the same submits.
@@ -18,18 +21,19 @@
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.configs import registry as jreg
 from repro.core import linear as jlin
-from repro.models import model as JM
+from repro.models import attention as jattn, model as JM
 from repro.runtime import kv_cache as jkv, scheduler as jsch
 from repro.runtime import serve_loop as jserve
 
 from repro_torch.configs import registry as treg
-from repro_torch.convert import params_from_jax
+from repro_torch.convert import params_from_jax, to_torch
 from repro_torch.core import linear as tlin
 from repro_torch.kernels import fused_slide_matmul as tfsm
 from repro_torch.models import attention as tattn, layers as tlayers
@@ -78,7 +82,7 @@ def _tcfg(mode, recipe):
                                    fused_attention=True))
 
 
-@pytest.mark.parametrize("recipe", ["none", "int8"])
+@pytest.mark.parametrize("recipe", ["none", "int8", "fp8", "w4"])
 @pytest.mark.parametrize("mode", ["compressed", "slided"])
 def test_engine_streams_match_jax_engine(jax_tree, mode, recipe):
     prompts, late = _traffic()
@@ -140,6 +144,93 @@ def test_slided_engine_equals_compressed_engine(jax_tree):
         streams["slided"])
     for rid, logits in first["compressed"].items():
         assert torch.equal(first["slided"][rid], logits)
+
+
+def _masked_scatter(pool, page_ids, slot_ids, k_new, v_new):
+    """The scatter the sync-free form replaced: dropped rows masked out
+    by boolean indexing (a host synchronization on CUDA)."""
+    keep = page_ids < tattn.drop_page(pool)
+    pid, sid = page_ids[keep].long(), slot_ids[keep].long()
+    k_new, v_new = k_new[keep], v_new[keep]
+    if pool["k"].dtype == torch.int8:
+        k_new, ks = tattn._quant_kv(k_new)
+        v_new, vs = tattn._quant_kv(v_new)
+        pool["k_scale"][pid, sid] = ks
+        pool["v_scale"][pid, sid] = vs
+    pool["k"][pid, sid] = k_new.to(pool["k"].dtype)
+    pool["v"][pid, sid] = v_new.to(pool["v"].dtype)
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+def test_pool_scatter_drops_like_jax(kind):
+    num_pages, ps, kvh, hd, rows = 6, 4, 2, 8, 12
+    rng = np.random.default_rng(5)
+    # distinct real (page, slot) targets, then dropped rows (page id
+    # num_pages), one aimed at a slot a real row also writes
+    cells = rng.permutation(num_pages * ps)[:8]
+    page_ids = np.concatenate([cells // ps, np.full(4, num_pages)])
+    slot_ids = np.concatenate([cells % ps, [cells[0] % ps, 0, 3, 1]])
+    order = rng.permutation(rows)
+    page_ids = page_ids[order].astype(np.int32)
+    slot_ids = slot_ids[order].astype(np.int32)
+    k_new = rng.standard_normal((rows, kvh, hd)).astype(np.float32)
+    v_new = rng.standard_normal((rows, kvh, hd)).astype(np.float32)
+    spec = tattn.AttnSpec(d_model=16, num_heads=2, num_kv_heads=kvh,
+                          head_dim=hd)
+    dt = getattr(torch, kind)
+    pool = tattn.make_paged_pool(spec, num_pages, ps, dt, device="cpu")
+    assert pool["k"].shape[0] == num_pages + 1
+    assert tattn.drop_page(pool) == num_pages
+    for leaf in pool.values():  # a non-zero pool: untouched cells must stay
+        leaf.copy_(torch.from_numpy(rng.standard_normal(leaf.shape)).to(
+            leaf.dtype) if leaf.dtype != torch.int8 else torch.from_numpy(
+            rng.integers(-127, 128, leaf.shape, dtype=np.int8)))
+    masked = {n: t.clone() for n, t in pool.items()}
+    jpool = {n: jnp.asarray(np.asarray(t[:num_pages].float()).astype(
+        jnp.bfloat16) if t.dtype == torch.bfloat16 else t[:num_pages].numpy())
+        for n, t in pool.items()}
+
+    args = (torch.from_numpy(page_ids), torch.from_numpy(slot_ids),
+            torch.from_numpy(k_new), torch.from_numpy(v_new))
+    tattn._pool_scatter(pool, *args)
+    _masked_scatter(masked, *args)
+    want = jattn._pool_scatter(jpool, jnp.asarray(page_ids),
+                               jnp.asarray(slot_ids), jnp.asarray(k_new),
+                               jnp.asarray(v_new))
+    for name, leaf in pool.items():
+        real = leaf[:num_pages]
+        assert torch.equal(real, masked[name][:num_pages]), name
+        jw = to_torch(np.asarray(want[name]), device="cpu")
+        assert real.dtype == jw.dtype and torch.equal(real, jw), name
+
+
+def test_no_page_table_names_the_spare_page():
+    cfg = tkv.PagedKVConfig(page_size=4, num_pages=10, max_batch=3,
+                            max_seq_len=40)
+    kv = tkv.KVCacheManager(cfg)
+    rng = np.random.default_rng(0)
+    lens = {}
+    for _ in range(200):
+        slot = int(rng.integers(0, cfg.max_batch))
+        if slot in lens and rng.random() < 0.3:
+            kv.free_slot(slot)
+            del lens[slot]
+            continue
+        want = min(lens.get(slot, 0) + int(rng.integers(1, 9)),
+                   cfg.max_seq_len)
+        try:
+            kv.ensure(slot, want)
+            lens[slot] = want
+        except tkv.OutOfPages:
+            pass
+        table = kv.page_table_array()
+        assert table.min() >= 0 and table.max() < cfg.num_pages
+    assert any(lens.values())
+    spec = tattn.AttnSpec(d_model=16, num_heads=2, num_kv_heads=2,
+                          head_dim=8)
+    pool = tattn.make_paged_pool(spec, cfg.num_pages, cfg.page_size,
+                                 device="cpu")
+    assert tattn.drop_page(pool) == cfg.num_pages
 
 
 @pytest.mark.parametrize("fn", [
@@ -214,6 +305,7 @@ def test_scheduler_copy_makes_jax_decisions(seed):
 
 def test_engine_refuses_unported_features():
     for kw in ({"tp": 2}, {"prefix_cache": True}, {"speculate": 2},
-               {"async_loop": True}):
+               {"faults": object()}):
         with pytest.raises(NotImplementedError, match="not ported"):
             tserve.EngineConfig(**kw)
+    assert tserve.EngineConfig(async_loop=True).async_loop
