@@ -30,8 +30,9 @@ Phases (any failed check exits nonzero):
    no-op read by the same timer, beside B4;
 3. B2, the paged-attention kernel, against its split plain version at the
    kernel's own split count, at full width (H=32, KVH=8, hd=120, page
-   16): decode B=4 up to ~1000 tokens, a 128-lane prefill chunk, and the
-   split edges (rows of 1, 15, 16, 17 tokens beside one of ~4000), window
+   16): decode B=4 up to ~1000 tokens, the verify step's 4 and 5 lanes
+   at B=4 (each verify row bit-equal to a decode call at kv_len + lane,
+   fp32 and bf16 queries), a 128-lane prefill chunk, and the split edges (rows of 1, 15, 16, 17 tokens beside one of ~4000), window
    off and 300, bf16 and int8 pools, fp32 queries and the main path's
    bf16 queries (tolerances below), each bf16 call launched twice and
    held bit-identical; kernel and SDPA timed in turns;
@@ -41,7 +42,7 @@ Phases (any failed check exits nonzero):
    a CUDA graph in ``warmup``; one prefill chunk and one decode step of
    each must dispatch under ``set_sync_debug_mode("error")`` (no host
    synchronization on the step path); the graphed engine must hold one
-   capture per step and give the eager run's streams, first-token logits
+   capture per step (the COW step's too) and give the eager run's streams, first-token logits
    (bit for bit) and kernel launch counts; both kernels' counts must rise
    during ``run()``, every request must finish OK, the page accounting
    must balance, and each request's last-prefill logits must agree with
@@ -58,12 +59,29 @@ Phases (any failed check exits nonzero):
    eager then graphed (host share, device idle share, top device
    operations); and eager, graphed and overlapped decode tok/s timed in
    turns;
-6. the float gate: the engine at recipe "none" with fp32 activations and
+6. the engine features, on phases 4 and 5's packed weights, graphed
+   (page 16, batch 4, prefill chunk 128): the prefix cache in both modes
+   (4 staggered requests behind a 250-token system prompt, a fifth that
+   repeats one prompt and must copy-on-write a page the other holds, a
+   sixth after all retired; streams equal to the cache-off engine, hits,
+   COW copies); speculative decoding with ngram drafts on a repeated
+   phrase, K = 3 in both modes and K = 4 compressed (streams equal to
+   speculate=0, drafts accepted, B2's and the linear kernel's counts
+   rising); fault injection (a step error rate, one poisoned request) on
+   the synchronous and the overlapped loop (the poisoned request FAILED,
+   survivors equal to phase 5's streams, retries taken, both loops
+   ending alike); int8 KV pages (graphed == eager bit for bit, the
+   logits gate with its planted faults).  Every engine holds one capture
+   per step, the COW, resumed-prefill and verify dispatches pass the
+   sync check, and every run's pages balance.  For the record: decode
+   tok/s spec-off against spec-on and prefill seconds prefix-off against
+   prefix-on in turns, acceptance and hit rates, graph nodes per step;
+7. the float gate: the engine at recipe "none" with fp32 activations and
    KV pages (full width, depth cut to FLOAT_LAYERS), graphed, against
    one-shot ``generate``: identical streams, or each first divergence a
    tie within rounding (one-shot top-2 margin below max|engine -
    one-shot| of the logits there);
-7. a ``kernels`` JSON line, the card line, and the final result line.
+8. a ``kernels`` JSON line, the card line, and the final result line.
 
 It imports neither JAX nor the JAX package, and prints every table it
 measures on standard output.
@@ -712,13 +730,21 @@ def phase_b2(torch, timer):
     # edges) beside one of ~4000, whose table leaves the short rows' splits
     # past their tails unallocated; window 300 leaves whole splits of the
     # long row below every query's window
+    # and the verify step's geometry, K + 1 = 4 and 5 lanes at the main
+    # path's batch, whose rows must give a decode call's bits
     cases = [("decode", [1000, 517, 77, 260], 1, True),
+             ("verify3", [1000, 517, 77, 260], 4, True),
+             ("verify4", [1000, 517, 77, 260], 5, True),
              ("prefill", [257], PREFILL_CHUNK, True),
              ("edges", [1, 15, 16, 17, 3999], 1, False)]
+    verify = {}
     for name, kv_len, lanes, timed in cases:
         b = len(kv_len)
         maxp = -(-(max(kv_len) + lanes - 1) // ps) + 2
         splits = pa.splits_for(b, kvh, maxp, ps, lanes, h // kvh)
+        if name.startswith("verify"):
+            assert splits == pa.splits_for(b, kvh, maxp, ps, 1, h // kvh), \
+                f"B2 {name} splits differently from decode"
         if name == "decode":
             assert splits > 1, f"B2 decode runs one split ({splits})"
             log(f"B2 decode grid: B x KVH x S = {b} x {kvh} x {splits} "
@@ -750,13 +776,28 @@ def phase_b2(torch, timer):
                 q = torch.randn((b, lanes, h, hd), generator=gen,
                                 device="cuda")
                 qb = q.to(torch.bfloat16)  # the main path's instance
+                # a prefill chunk takes the tensor-core instance, every
+                # other call the decode rows' instance (row_exact)
+                exact = name != "prefill"
                 y = pa.paged_attention_cuda(q, pool, table, kvl, window)
                 y_ref = ref.flash_paged_split(q, pool, table, kvl, window,
                                               splits)
-                yb = pa.paged_attention_cuda(qb, pool, table, kvl, window)
-                yb2 = pa.paged_attention_cuda(qb, pool, table, kvl, window)
+                yb = pa.paged_attention_cuda(qb, pool, table, kvl, window,
+                                             exact)
+                yb2 = pa.paged_attention_cuda(qb, pool, table, kvl, window,
+                                              exact)
                 yb_ref = ref.flash_paged_split(qb, pool, table, kvl, window,
                                                splits)
+                if name.startswith("verify"):
+                    # row i of the verify call == a decode call at kv_len+i
+                    for lane in range(lanes):
+                        for qq, yy in ((q, y), (qb, yb)):
+                            one = pa.paged_attention_cuda(
+                                qq[:, lane:lane + 1].contiguous(), pool,
+                                table, kvl + lane, window)
+                            assert torch.equal(one[:, 0], yy[:, lane]), \
+                                f"B2 {name} {pool_kind} {window} lane " \
+                                f"{lane} ({qq.dtype}) differs from decode"
                 torch.cuda.synchronize()
                 err32 = (y - y_ref).abs().max().item()
                 assert err32 <= B2_TOL, \
@@ -792,7 +833,7 @@ def phase_b2(torch, timer):
                 qt = qb.transpose(1, 2)
                 t_k, t_l = timer.turns(
                     lambda: pa.paged_attention_cuda(qb, pool, table, kvl,
-                                                    window),
+                                                    window, exact),
                     lambda: F.scaled_dot_product_attention(
                         qt, kg, vg, attn_mask=mask, enable_gqa=True))
                 t_p = timer(lambda: ref.flash_paged_split(
@@ -816,9 +857,13 @@ def phase_b2(torch, timer):
                 log(f"{name} {pool_kind} {window} {splits} | {t_k:.4f} "
                     f"{t_p:.4f} {t_l:.4f} {b_ms:.4f} {b_by} | {err32:.3g} "
                     f"{err:.3g}")
-                if name == "decode" and pool_kind == "bf16" and window is None:
-                    main = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-                            "bound_ms": b_ms, "bound_by": b_by}
+                row = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                       "bound_ms": b_ms, "bound_by": b_by}
+                if pool_kind == "bf16" and window is None:
+                    if name == "decode":
+                        main = row
+                    elif name.startswith("verify"):
+                        verify[name] = row
         del pool
     torch.cuda.empty_cache()
     # per decode step: the model's 24 attention layers at this shape
@@ -826,12 +871,20 @@ def phase_b2(torch, timer):
     log(f"B2 per decode step (24 layers, B=4, bf16 pool): kernel "
         f"{step['ms']:.3f} ms, plain {step['plain_ms']:.3f} ms, library "
         f"{step['library_ms']:.3f} ms, bound {step['bound_ms']:.3f} ms")
+    for name, row in verify.items():
+        log(f"B2 per {name} step (24 layers, B=4, L={name[-1]}+1, bf16 pool; "
+            f"rows of a verify call bit-equal to decode calls): kernel "
+            f"{24 * row['ms']:.3f} ms, plain {24 * row['plain_ms']:.3f} ms, "
+            f"library {24 * row['library_ms']:.3f} ms, bound "
+            f"{24 * row['bound_ms']:.3f} ms ({row['bound_by']})")
     return max_err, step
 
 
 # ----------------------------------------------------------------- phase 4
 PLENS, NEW_TOKENS = [53, 117, 211, 298], 32
 FLOAT_LAYERS = 8               # depth of the float-recipe gate's model
+# one CUDA graph per step of an engine with speculation off
+ONE_EACH = {"prefill": 1, "decode": 1, "cow": 1}
 PROFILE_STEPS = 8              # decode steps in each profiler window
 
 
@@ -888,25 +941,35 @@ def _engine_setup(torch, mode, recipe="int8", dtype=None, num_layers=None):
 
 
 def _sync_free(torch, eng, label):
-    """One prefill chunk and one decode step of ``eng`` dispatched under
-    ``torch.cuda.set_sync_debug_mode("error")``, their outputs' copy to the
-    host queued too: any host synchronization on the step path raises.
-    The dummy inputs write only the spare page."""
+    """Dispatch under ``torch.cuda.set_sync_debug_mode("error")`` one
+    prefill chunk, one decode step, a COW call, a resumed prefill chunk
+    (start > 0) and, when ``eng`` speculates, a verify step, each step's
+    ids' copy to the host queued too: any host synchronization on the
+    step path raises.  The dummy inputs write only the spare page.  The
+    COW call counts one copy in ``eng.stats``."""
     import numpy as np
     ec = eng.ecfg
     ptab = eng.kv.page_table_array()
+    b = ec.max_batch
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         eng._prefill(np.zeros((1, ec.prefill_chunk)), ptab[:1], 0, 0)
-        eng._decode(np.zeros(ec.max_batch), ptab, np.zeros(ec.max_batch),
-                    np.zeros(ec.max_batch))
+        eng._decode(np.zeros(b), ptab, np.zeros(b), np.zeros(b))
         eng._to_host(eng._steps["decode"].out[0])
+        eng._run_cow([(0, ec.num_pages)])
+        eng._prefill(np.zeros((1, ec.prefill_chunk)), ptab[:1],
+                     3 * ec.page_size, 0)
+        if ec.speculate:
+            eng._verify(np.zeros((b, ec.speculate + 1)), ptab, np.zeros(b),
+                        np.ones(b), np.zeros(b))
+            eng._to_host(eng._steps["verify"].out[0])
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    log(f"sync check {label}: a prefill chunk and a decode step ran under "
-        "set_sync_debug_mode('error'), no host synchronization")
+    log(f"sync check {label}: a prefill chunk, a decode step, a COW call, "
+        f"a resumed prefill chunk{' and a verify step' if ec.speculate else ''}"
+        " ran under set_sync_debug_mode('error'), no host synchronization")
 
 
 def _sync_check_bites(torch):
@@ -938,23 +1001,25 @@ def _engine_pair(torch, cfg, params, ecfg):
     graphed = serve_loop.ServeEngine(params, cfg, ecfg, device="cuda")
     log(f"warmup graphed (eager pass + capture): {graphed.warmup():.2f} s; "
         f"captures {graphed.captures}")
-    assert eager.captures == {"prefill": 0, "decode": 0}, eager.captures
-    assert graphed.captures == {"prefill": 1, "decode": 1}, graphed.captures
+    assert set(eager.captures.values()) == {0}, eager.captures
+    assert graphed.captures == ONE_EACH, graphed.captures
     _sync_free(torch, eager, "eager")
     _sync_free(torch, graphed, "graphed")
     return eager, graphed
 
 
-def _engine_run(eng, prompts, label, split=True):
-    """Serve the prompts with every kernel count set to 0 just before
-    ``run()``; returns (completions, launches read just after).  With
-    ``split`` each step ends in a synchronize, so the run's wall time
-    splits into prefill and decode steps (a step that advanced the
-    scheduler's decode count is a decode step)."""
+def _serve_reqs(eng, reqs, split=False):
+    """Submit ``reqs`` [(rid, prompt, arrival)], NEW_TOKENS each, and run
+    with every kernel count set to 0 just before ``run()``; the pages must
+    balance after it.  Returns (completions of these rids, launches read
+    just after, split or None).  With ``split`` each step ends in a
+    synchronize, a step that advanced the scheduler's decode count is a
+    decode (or verify) step and one that did not a prefill step, and
+    split is {"prefill": seconds, "decode": seconds, "decode_steps": n}."""
     import torch
     counters = _counters()
-    for i, p in enumerate(prompts):
-        eng.submit(p, NEW_TOKENS, rid=i, arrival=2 * i)
+    for rid, p, arrival in reqs:
+        eng.submit(p, NEW_TOKENS, rid=rid, arrival=arrival)
     marks = []
 
     def on_step(e, k):
@@ -963,25 +1028,36 @@ def _engine_run(eng, prompts, label, split=True):
 
     for mod in counters.values():
         mod.reset_counts()
-    t_prev, d_prev = time.perf_counter(), 0
+    t_prev, d_prev = time.perf_counter(), eng.sched.stats.decode_steps
     out = eng.run(on_step=on_step if split else None)
     launches = {name: mod.launch_count() for name, mod in counters.items()}
-    s = eng.stats
+    part = None
     if split:
-        part = {"prefill": 0.0, "decode": 0.0}
+        part = {"prefill": 0.0, "decode": 0.0, "decode_steps": 0}
         for t, d in marks:
             part["decode" if d > d_prev else "prefill"] += t - t_prev
+            part["decode_steps"] += d - d_prev
             t_prev, d_prev = t, d
-        how = (f" (prefill steps {part['prefill']:.3f} s, decode steps "
-               f"{part['decode']:.3f} s)")
-    else:
-        how = " (no per-step synchronize)"
+    eng.kv.check()
+    pool = eng.kv.pool
+    assert pool.num_free + pool.num_cached == eng.ecfg.num_pages, \
+        "page accounting does not balance"
+    return {rid: out[rid] for rid, _, _ in reqs}, launches, part
+
+
+def _engine_run(eng, prompts, label, split=True):
+    """Serve the prompts, staggered, through ``_serve_reqs``; every
+    request must finish OK.  Returns (completions, launches)."""
+    out, launches, part = _serve_reqs(
+        eng, [(i, p, 2 * i) for i, p in enumerate(prompts)], split)
+    s = eng.stats
+    how = (f" (prefill steps {part['prefill']:.3f} s, decode steps "
+           f"{part['decode']:.3f} s)" if split
+           else " (no per-step synchronize)")
     log(f"run {label}: {s.steps} steps, {s.decode_steps} decode steps, "
         f"{s.decode_tokens} decode tokens in {s.wall_s:.3f} s{how}; "
         f"{s.decode_tok_s:.2f} tok/s; launches {launches}")
-    assert sorted(out) == list(range(len(prompts)))
     assert all(c.ok and len(c.tokens) == NEW_TOKENS for c in out.values())
-    eng.kv.check()
     return out, launches
 
 
@@ -989,7 +1065,7 @@ def _hold_graphed(torch, eager, e_out, e_launches, graphed, g_out,
                   g_launches, label):
     """The graphed run equals the eager run of the same engine: streams,
     first-token logits bit for bit, and every kernel's launch count."""
-    assert graphed.captures == {"prefill": 1, "decode": 1}, graphed.captures
+    assert graphed.captures == ONE_EACH, graphed.captures
     for i, c in g_out.items():
         assert c.tokens == e_out[i].tokens, \
             f"{label} request {i}: graphed stream differs from eager"
@@ -1002,29 +1078,12 @@ def _hold_graphed(torch, eager, e_out, e_launches, graphed, g_out,
         f"logits bit-equal, launches equal {g_launches}; 1 capture per step")
 
 
-def phase_engine(torch, card):
-    from repro_torch.kernels import ops as kops, slide_matmul as smm
+def _logits_gate(torch, cfg, params, ecfg, prompts, eng, out, label):
+    """Hold ``eng``'s last-prefill logits to the one-shot prefill on the
+    same weights, at LOGIT_RL2, beside two planted faults."""
+    from repro_torch.kernels import ops as kops
     from repro_torch.models import model as M
     from repro_torch.runtime import serve_loop
-
-    log("== engine: h2o-danube-3-4b 24L d3840, 6:8 compressed int8, bf16, "
-        "fused attention; eager, then each step a CUDA graph ==")
-    _sync_check_bites(torch)
-    cfg, params, prompts, ecfg = _engine_setup(torch, "compressed")
-    eager, eng = _engine_pair(torch, cfg, params, ecfg)
-    e_out, e_launches = _engine_run(eager, prompts, "eager")
-    out, launches = _engine_run(eng, prompts, "graphed")
-    log(f"B1 weight tiles decompressed {smm.decompress_count()}")
-    assert launches["compressed_matmul"] > 0, launches
-    assert launches["paged_attention"] > 0, launches
-    assert launches["fused_slided_matmul"] == 0, launches
-    _hold_graphed(torch, eager, e_out, e_launches, eng, out, launches,
-                  "compressed")
-    s = eng.stats
-    log(f"decode throughput {s.decode_tok_s:.2f} tok/s graphed, "
-        f"{eager.stats.decode_tok_s:.2f} eager (decode tokens over run wall "
-        f"time incl. prefill) on {card}")
-    del eager
 
     # Gate of the last-prefill logits: the relative L2 distance
     # ||engine - one-shot|| / ||one-shot|| of each request, at the fixed
@@ -1055,7 +1114,7 @@ def phase_engine(torch, card):
         bad.run()
     finally:
         kops.paged_attention = orig
-    assert bad.captures == {"prefill": 1, "decode": 1}, bad.captures
+    assert bad.captures == ONE_EACH, bad.captures
 
     same, total = 0, 0
     read = {"sound": [], "short": [], "dropped": []}
@@ -1076,10 +1135,11 @@ def phase_engine(torch, card):
             f"{read['short'][-1]:.5f}, dropped {read['dropped'][-1]:.5f}; "
             f"max|diff|/std {((got - ref).abs().max() / ref.std()).item():.4f}"
             f"; argmax {int(got.argmax())} / {int(ref.argmax())}")
-    log(f"identical tokens vs one-shot generate (int8): {same}/{total} "
+    log(f"identical tokens vs one-shot generate ({label}): {same}/{total} "
         f"({same / total:.3f})")
     worst = {k: max(v) for k, v in read.items()}
-    log(f"last-prefill logits, worst relative L2: sound {worst['sound']:.5f}"
+    log(f"last-prefill logits ({label}), worst relative L2: sound "
+        f"{worst['sound']:.5f}"
         f", planted faults short {worst['short']:.5f} and dropped "
         f"{worst['dropped']:.5f}; limit {LOGIT_RL2}")
     assert worst["sound"] <= LOGIT_RL2, \
@@ -1087,9 +1147,34 @@ def phase_engine(torch, card):
     for fault in ("short", "dropped"):
         assert worst[fault] > LOGIT_RL2, \
             f"planted fault {fault} ({worst[fault]}) passes the gate"
+
+
+def phase_engine(torch, card):
+    from repro_torch.kernels import slide_matmul as smm
+
+    log("== engine: h2o-danube-3-4b 24L d3840, 6:8 compressed int8, bf16, "
+        "fused attention; eager, then each step a CUDA graph ==")
+    _sync_check_bites(torch)
+    cfg, params, prompts, ecfg = _engine_setup(torch, "compressed")
+    eager, eng = _engine_pair(torch, cfg, params, ecfg)
+    e_out, e_launches = _engine_run(eager, prompts, "eager")
+    out, launches = _engine_run(eng, prompts, "graphed")
+    log(f"B1 weight tiles decompressed {smm.decompress_count()}")
+    assert launches["compressed_matmul"] > 0, launches
+    assert launches["paged_attention"] > 0, launches
+    assert launches["fused_slided_matmul"] == 0, launches
+    _hold_graphed(torch, eager, e_out, e_launches, eng, out, launches,
+                  "compressed")
+    s = eng.stats
+    log(f"decode throughput {s.decode_tok_s:.2f} tok/s graphed, "
+        f"{eager.stats.decode_tok_s:.2f} eager (decode tokens over run wall "
+        f"time incl. prefill) on {card}")
+    del eager
+    _logits_gate(torch, cfg, params, ecfg, prompts, eng, out, "int8")
     result = {"tokens": {i: c.tokens for i, c in out.items()},
               "first_logits": {i: v.cpu() for i, v in eng.first_logits.items()},
-              "tok_s": s.decode_tok_s}
+              "tok_s": s.decode_tok_s, "pack": (cfg, params),
+              "prompts": prompts, "ecfg": ecfg}
     return launches, result
 
 
@@ -1276,7 +1361,7 @@ def phase_slided_engine(torch, card, compressed):
         "overlapped scheduler trace differs from the sync run"
     assert a.lookahead_steps > 0, "the fast path never fired"
     assert a_launches == launches, (a_launches, launches)
-    assert overlapped.captures == {"prefill": 1, "decode": 1}
+    assert overlapped.captures == ONE_EACH, overlapped.captures
     log(f"overlapped == sync: {len(a_out)} streams and the scheduler trace "
         f"({len(eng.sched.trace)} entries) equal, launches equal")
 
@@ -1285,10 +1370,244 @@ def phase_slided_engine(torch, card, compressed):
     want = {i: c.tokens for i, c in out.items()}
     tok = _timed_turns(torch, {"eager": eager, "graphed": eng,
                                "overlapped": overlapped}, prompts, want, card)
-    return launches, {"profile": prof, "tok_s": tok}
+    return launches, {"profile": prof, "tok_s": tok, "pack": (cfg, params),
+                      "tokens": want}
 
 
 # ----------------------------------------------------------------- phase 6
+SHARED_LEN = 250               # tokens of the shared system prompt
+SUFFIXES = (54, 70, 98, 120)   # distinct suffixes: 250 + 70 = 20 pages
+PHRASE_LEN = 24                # the phrase the speculation traffic repeats
+FAULT_PLAN = dict(seed=17, step_error_rate=0.1, poison_rids=(2,))
+
+
+def _feature_engine(torch, cfg, params, ecfg, **kw):
+    """A graphed engine with ``ecfg`` changed by ``kw``, warmed up: each
+    of its steps (prefill, decode, COW and, speculating, verify) captured
+    exactly once."""
+    import dataclasses
+    from repro_torch.runtime import serve_loop
+    eng = serve_loop.ServeEngine(params, cfg, dataclasses.replace(ecfg, **kw),
+                                 device="cuda")
+    eng.warmup()
+    want = dict(ONE_EACH, **({"verify": 1} if eng.ecfg.speculate else {}))
+    assert eng.captures == want, eng.captures
+    return eng
+
+
+def _graph_nodes(torch, eng):
+    """Nodes of each step's CUDA graph: the step's body captured once more
+    into a graph that keeps its cudaGraph_t, counted by libcuda's
+    cuGraphGetNodes.  None where this torch cannot keep the graph."""
+    import ctypes
+    from repro_torch.kernels import ops as kops
+    if not hasattr(torch.cuda.CUDAGraph, "raw_cuda_graph"):
+        return None
+    try:
+        torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        return None
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.restype = ctypes.c_int
+    nodes = {}
+    for name, st in eng._steps.items():
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with kops.recorded_launches():
+            with torch.cuda.graph(g):
+                st.body(st.inputs)
+        n = ctypes.c_size_t(0)
+        err = cuda.cuGraphGetNodes(ctypes.c_void_p(g.raw_cuda_graph()), None,
+                                   ctypes.byref(n))
+        assert err == 0, f"cuGraphGetNodes: CUresult {err}"
+        nodes[name] = n.value
+        del g
+    torch.cuda.empty_cache()
+    return nodes
+
+
+def _prefix_traffic(torch, vocab):
+    """Four staggered requests behind one SHARED_LEN-token system prompt,
+    each with its own suffix (its 250 + 54..120 tokens end mid-page but
+    for rid 1's, 20 full pages); rid 4 repeats rid 1's prompt and waits
+    for a slot, so it is admitted while rid 1 still decodes, forks its 20
+    pages and resumes inside the last, which rid 1 holds: its prefill
+    write copies that page first (COW).  Then rid 5, a new suffix behind
+    the same prompt, arrives after every other request retired, and
+    revives the cached pages.  Returns (first requests, rid 5's prompt)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def draw(n):
+        return torch.randint(0, vocab, (n,), generator=gen,
+                             device="cuda").tolist()
+
+    shared = draw(SHARED_LEN)
+    prompts = [shared + draw(n) for n in SUFFIXES]
+    first = [(i, p, 2 * i) for i, p in enumerate(prompts)]
+    first.append((4, list(prompts[1]), 8))
+    return first, shared + draw(90)
+
+
+def _tokens(out):
+    return {rid: c.tokens for rid, c in out.items()}
+
+
+def phase_features(torch, card, packs, prompts, ecfg, clean):
+    """The engine features on the full-width model, packed once in phases
+    4 and 5 (``packs``: mode -> (cfg, params)), graphed, page 16, batch 4,
+    prefill chunk 128:
+    - prefix cache, both modes: streams equal the same engine with the
+      cache off; hits, COW copies, one capture of the COW step;
+    - speculation (ngram drafts) on a repeated phrase, K = 3 in both modes
+      and K = 4 compressed: streams equal speculate=0, drafts accepted,
+      one capture of the verify step, B2's and the linear kernel's counts
+      rising during run();
+    - faults (a step error rate and one poisoned request) on the
+      synchronous and the overlapped loop, slided, on phase 5's traffic:
+      the poisoned request FAILED, survivors equal to ``clean`` (phase
+      5's streams), retries taken, both loops ending alike;
+    - int8 KV pages, compressed: graphed == eager bit for bit and the
+      last-prefill logits gate with its two planted faults.
+    The sync check covers the COW step, a resumed prefill and the verify
+    step.  Decode tok/s spec-off against spec-on and prefill seconds
+    prefix-off against prefix-on are timed in turns, for the record."""
+    import dataclasses
+    import statistics
+    from repro_torch.runtime import faults as fl, scheduler as sch
+
+    log("== engine features: h2o-danube-3-4b 24L d3840, 6:8 int8, graphed; "
+        "prefix cache, speculative verify, fault injection, int8 KV ==")
+    fecfg = dataclasses.replace(ecfg, num_pages=256, max_seq_len=512)
+    vocab = packs["compressed"][0].vocab_size
+    linear = {"compressed": "compressed_matmul",
+              "slided": "fused_slided_matmul"}
+    record = {}
+
+    # -------- prefix cache: cache off, on; then on, off (prefill in turns)
+    first, late = _prefix_traffic(torch, vocab)
+    for mode in ("compressed", "slided"):
+        cfg, params = packs[mode]
+        streams, secs, engs = {}, {False: [], True: []}, {}
+        for on in (False, True, True, False):
+            eng = _feature_engine(torch, cfg, params, fecfg, prefix_cache=on)
+            out, _, part = _serve_reqs(eng, first, split=True)
+            secs[on].append(part["prefill"])
+            if on in engs:  # the timing turn
+                assert _tokens(out) == {r: streams[on][r] for r in out}
+                continue
+            late_out, _, _ = _serve_reqs(eng, [(5, late, eng.sched.clock)])
+            out.update(late_out)
+            assert all(c.ok and len(c.tokens) == NEW_TOKENS
+                       for c in out.values()), (mode, on)
+            streams[on], engs[on] = _tokens(out), eng
+        assert streams[True] == streams[False], \
+            f"prefix cache {mode}: streams differ from the cache-off engine"
+        eng = engs[True]
+        s = eng.stats
+        assert s.prefix_hit_tokens > 0, f"prefix cache {mode}: no hit"
+        assert s.cow_copies > 0, f"prefix cache {mode}: no COW copy"
+        assert eng.captures["cow"] == 1, eng.captures
+        pre = {k: statistics.median(v) for k, v in secs.items()}
+        record[f"prefix {mode}"] = (s.prefix_hit_rate, pre)
+        log(f"prefix cache {mode}: {len(streams[True])} streams equal to "
+            f"cache-off; hit tokens {s.prefix_hit_tokens}, hit rate "
+            f"{s.prefix_hit_rate:.4f}, prefill chunks skipped "
+            f"{s.prefill_chunks_skipped}, COW copies {s.cow_copies}, cached "
+            f"page reclaims {s.cached_page_evictions}; first 5 requests' "
+            f"prefill steps in turns (off, on, on, off), median of 2: off "
+            f"{pre[False]:.4f} s, on {pre[True]:.4f} s ({card})")
+        _sync_free(torch, eng, f"prefix {mode}")
+        del engs, eng
+        torch.cuda.empty_cache()
+
+    # -------- speculation on a repeated seeded phrase
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    spec_reqs = []
+    for i in range(4):
+        phrase = torch.randint(0, vocab, (PHRASE_LEN,), generator=gen,
+                               device="cuda").tolist()
+        spec_reqs.append((i, phrase * (3 + i), 2 * i))  # 72..144 tokens
+    for mode, ks in (("compressed", (3, 4)), ("slided", (3,))):
+        cfg, params = packs[mode]
+        off = _feature_engine(torch, cfg, params, fecfg)
+        want, _, part = _serve_reqs(off, spec_reqs, split=True)
+        want = _tokens(want)
+        dec_ms = 1e3 * part["decode"] / part["decode_steps"]
+        for k in ks:
+            on = _feature_engine(torch, cfg, params, fecfg, speculate=k)
+            out, launches, part = _serve_reqs(on, spec_reqs, split=True)
+            assert all(c.ok for c in out.values())
+            assert _tokens(out) == want, \
+                f"speculate={k} {mode}: streams differ from speculate=0"
+            s = on.stats
+            assert s.accepted_tokens > 0, f"speculate={k} {mode}: none taken"
+            assert on.captures["verify"] == 1, on.captures
+            assert launches["paged_attention"] > 0, launches
+            assert launches[linear[mode]] > 0, launches
+            log(f"speculate={k} {mode}: {len(out)} streams equal to "
+                f"speculate=0; {s.verify_steps} verify steps, accepted "
+                f"{s.accepted_tokens}/{s.draft_tokens} (rate "
+                f"{s.acceptance_rate:.4f}); launches {launches}; a verify "
+                f"step {1e3 * part['decode'] / part['decode_steps']:.3f} ms "
+                f"against a decode step {dec_ms:.3f} ms (speculate=0), "
+                f"each step synchronized ({card})")
+            if k == 3:
+                _sync_free(torch, on, f"speculate=3 {mode}")
+                tok = _timed_turns(
+                    torch, {"spec-off": off, "spec-on": on},
+                    [p for _, p, _ in spec_reqs], want, card)
+                record[f"spec {mode}"] = (s.acceptance_rate, tok)
+                if mode == "compressed":
+                    nodes = _graph_nodes(torch, on)
+                    log(f"CUDA graph nodes per step (compressed, "
+                        f"speculate=3): {nodes if nodes else 'not measured'}")
+                    record["nodes"] = nodes
+            del on
+            torch.cuda.empty_cache()
+        del off
+
+    # -------- faults on phase 5's traffic, sync and overlapped
+    cfg, params = packs["slided"]
+    reqs = [(i, p, 2 * i) for i, p in enumerate(prompts)]
+    ends = {}
+    for async_loop in (False, True):
+        eng = _feature_engine(torch, cfg, params, ecfg, async_loop=async_loop,
+                              faults=fl.FaultPlan(**FAULT_PLAN))
+        out, _, _ = _serve_reqs(eng, reqs)
+        assert (out[2].status, out[2].reason) == \
+            (sch.FAILED, sch.REASON_POISONED), (out[2].status, out[2].reason)
+        for rid, c in out.items():
+            want = clean[rid] if c.ok else clean[rid][:len(c.tokens)]
+            assert c.tokens == want, f"faults: request {rid} ({c.status})"
+        s = eng.stats
+        assert s.step_retries > 0, "faults: no step retried"
+        ends[async_loop] = {r: (c.status, c.reason, c.tokens)
+                            for r, c in out.items()}
+        log(f"faults ({'overlapped' if async_loop else 'sync'}): statuses "
+            f"{ {r: c.status for r, c in out.items()} }; step errors "
+            f"{s.step_errors}, retries {s.step_retries}, failed {s.failed}, "
+            f"lookahead steps {s.lookahead_steps}; injector "
+            f"[{eng.injector.describe()}]; survivors equal the fault-free "
+            "streams")
+        del eng
+    assert ends[True] == ends[False], "faults: the two loops ended apart"
+
+    # -------- int8 KV pages, compressed
+    cfg, params = packs["compressed"]
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    eager, eng = _engine_pair(torch, cfg8, params, ecfg)
+    e_out, e_launches = _engine_run(eager, prompts, "eager int8-KV")
+    out, launches = _engine_run(eng, prompts, "graphed int8-KV")
+    _hold_graphed(torch, eager, e_out, e_launches, eng, out, launches,
+                  "int8-KV")
+    del eager
+    _logits_gate(torch, cfg8, params, ecfg, prompts, eng, out,
+                 "int8, int8 KV pages")
+    del eng
+    torch.cuda.empty_cache()
+    return record
+
+
+# ----------------------------------------------------------------- phase 7
 def phase_float_gate(torch, card):
     """The north star's argmax-identity contract on the card: the engine
     at recipe "none" with fp32 activations and KV pages (B1's float
@@ -1450,8 +1769,15 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
     launches, compressed = phase_engine(torch, card)
-    torch.cuda.empty_cache()  # both packings are ~5.8 GB: free the first
+    torch.cuda.empty_cache()
     slided_launches, slided = phase_slided_engine(torch, card, compressed)
+    torch.cuda.empty_cache()
+    # both packings (5.76 + 3.61 GB of linears) serve the features phase
+    packs = {"compressed": compressed.pop("pack"),
+             "slided": slided.pop("pack")}
+    features = phase_features(torch, card, packs, compressed["prompts"],
+                              compressed["ecfg"], slided["tokens"])
+    del packs
     torch.cuda.empty_cache()
     phase_float_gate(torch, card)
     prof, tok_s = slided["profile"], slided["tok_s"]
@@ -1462,6 +1788,15 @@ def main() -> int:
     log(f"slided engine decode tok/s: eager {tok_s['eager']:.2f}, graphed "
         f"{tok_s['graphed']:.2f}, graphed + overlapped "
         f"{tok_s['overlapped']:.2f} ({card})")
+    for mode in ("compressed", "slided"):
+        rate, tok = features[f"spec {mode}"]
+        hit, pre = features[f"prefix {mode}"]
+        log(f"features {mode}: decode tok/s spec-off {tok['spec-off']:.2f}, "
+            f"spec-on (K=3) {tok['spec-on']:.2f}, acceptance rate "
+            f"{rate:.4f}; prefill s prefix-off {pre[False]:.4f}, prefix-on "
+            f"{pre[True]:.4f}, hit rate {hit:.4f} ({card})")
+    log(f"CUDA graph nodes per step: "
+        f"{features['nodes'] or 'not measured'} ({card})")
 
     def entry(name, source, replaces, n, err, st):
         return {"name": name, "route": "cuda",

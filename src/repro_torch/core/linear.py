@@ -12,7 +12,7 @@ One config object selects the execution path for every projection:
                      CPU); the 'none' recipe runs ``slide.slided_matmul``
                      in plain torch, as the JAX package runs it outside
                      any Pallas kernel
-  mode='masked'      not ported yet (ROADMAP A.1 / A.9, STE training)
+  mode='masked'      not ported yet (ROADMAP A.6, STE training)
 
 Precision composes through ``recipe`` (``precision.PrecisionRecipe``).
 On the compressed path the per-token activation quantization stays plain
@@ -31,7 +31,7 @@ from . import slide, compressed as comp, packer, precision, quant
 from .precision import PrecisionRecipe
 
 _NOT_PORTED = {
-    "masked": "ROADMAP A.9 (STE-masked training stack)",
+    "masked": "ROADMAP A.6 (STE-masked training stack)",
 }
 
 

@@ -33,9 +33,12 @@
 //   scale rows 4 bytes per token), so two chunks are in flight during
 //   each chunk's dots; the page table is read once per page per warp and
 //   handed to the lanes by shuffles;
-// - decode (the CUDA-core instance, also every fp32-query call): a tile
-//   of 4 query rows (rep at L = 1), one warp per row for the scores and
-//   the softmax, one thread per head-dim column for P.V, fp32 FMAs;
+// - decode (the CUDA-core instance, also every fp32-query call and every
+//   row_exact call such as a verify step): a tile of 4 query rows (rep at
+//   L = 1) or 16, one warp per row for the scores and the softmax, one
+//   thread per head-dim column for P.V, fp32 FMAs.  A row's arithmetic
+//   does not depend on the tile: chunks wholly masked for it leave its
+//   (m, l, acc) bit-unchanged, so a verify row equals a decode row;
 // - a prefill chunk with bf16 queries (bf16 or int8 pool): 64 query rows
 //   per block, 16 per warp, QK^T and P.V on mma.sync.m16n8k16 bf16 with
 //   fp32 accumulation (head_dim zero-padded 120 -> 128 for QK^T, n = 15
@@ -77,6 +80,7 @@ struct Params {
   float* pm;    // [B, KVH, S, Lr] partial max
   float* pl;    // [B, KVH, S, Lr] partial sum
   int B, L, H, KVH, hd, P, maxp, window, splits, pps;
+  int row_exact;  // every row on the CUDA-core instance a decode row takes
   float scale;
 };
 
@@ -774,7 +778,7 @@ template <typename QType, int KV>
 cudaError_t launch_attend(const Params& p, cudaStream_t st) {
   const int lr = p.L * (p.H / p.KVH);
   if constexpr (std::is_same<QType, __nv_bfloat16>::value && KV != KV_F32) {
-    if (lr > 16) return launch_mma<KV>(p, st);
+    if (lr > 16 && !p.row_exact) return launch_mma<KV>(p, st);
   }
   if (lr <= 4) return launch_core<QType, KV, 4>(p, st);
   return launch_core<QType, KV, 16>(p, st);
@@ -804,14 +808,17 @@ cudaError_t run(int kv_mode, const Params& p, cudaStream_t st) {
 // page_table [B, maxp] int32; kv_len [B] int32; window < 0 means none;
 // splits S >= 1 page ranges of ceil(maxp / S) pages; when S > 1, scratch
 // partials acc [B, KVH, S, L*H/KVH, hd] and m, l [B, KVH, S, L*H/KVH]
-// fp32.  hd <= 128 and a multiple of 8; pools 16-byte aligned.  Returns
-// the cudaError_t of the launches (0 on success).
+// fp32.  hd <= 128 and a multiple of 8; pools 16-byte aligned.  row_exact
+// keeps every row on the CUDA-core instance (a verify row then gives the
+// bits of a decode row at kv_len + lane); 0 lets bf16 queries over more
+// than 16 rows per KV head take the tensor-core instance (a prefill
+// chunk).  Returns the cudaError_t of the launches (0 on success).
 extern "C" int paged_attention_launch(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* page_table, const void* kv_len,
     void* out, void* part_acc, void* part_m, void* part_l, int B, int L,
     int H, int KVH, int hd, int P, int maxp, int window, int splits,
-    float scale, int q_bf16, int kv_mode, void* stream) {
+    float scale, int q_bf16, int kv_mode, int row_exact, void* stream) {
   if (B <= 0 || L <= 0 || KVH <= 0 || H % KVH || hd <= 0 || hd > HDP ||
       hd % 8 || P <= 0 || maxp <= 0 || splits <= 0 || splits > maxp)
     return cudaErrorInvalidValue;
@@ -833,6 +840,7 @@ extern "C" int paged_attention_launch(
   p.maxp = maxp; p.window = window; p.splits = splits;
   p.pps = (maxp + splits - 1) / splits;
   p.scale = scale;
+  p.row_exact = row_exact;
   auto st = static_cast<cudaStream_t>(stream);
   if (q_bf16) return run<__nv_bfloat16>(kv_mode, p, st);
   return run<float>(kv_mode, p, st);

@@ -182,13 +182,18 @@ def compressed_matmul(x: torch.Tensor, c: CompressedSlided,
 
 def paged_attention(q: torch.Tensor, pool: dict, page_table: torch.Tensor,
                     kv_len: torch.Tensor, *,
-                    sliding_window: int | None = None) -> torch.Tensor:
+                    sliding_window: int | None = None,
+                    row_exact: bool = True) -> torch.Tensor:
     """Fused paged flash attention over the page pool.
 
     q: [B, L, H, hd] post-RoPE queries; lane ``i`` of sequence ``b`` sees
     positions ``< kv_len[b] + i`` (and within ``sliding_window`` of its
     own position).  page_table: [B, maxp] int32 (unallocated entries 0);
-    kv_len: [B] int32 row-0 lengths.  Returns [B, L, H, hd] in q.dtype."""
+    kv_len: [B] int32 row-0 lengths.  ``row_exact`` keeps every row on
+    the kernel's decode (CUDA-core) instance, so lane ``i`` gives the bits
+    of an L = 1 call at ``kv_len + i``; the prefill-chunk call site clears
+    it to let bf16 queries take the tensor-core instance.  Returns
+    [B, L, H, hd] in q.dtype."""
     if q.shape[2] % pool["k"].shape[2]:
         raise ValueError(f"q heads {q.shape[2]} not a multiple of kv heads "
                          f"{pool['k'].shape[2]}")
@@ -196,7 +201,7 @@ def paged_attention(q: torch.Tensor, pool: dict, page_table: torch.Tensor,
     if q.is_cuda:
         return _pa.paged_attention_cuda(
             q.contiguous(), pool, page_table.to(torch.int32).contiguous(),
-            kv_len.to(torch.int32).contiguous(), window)
+            kv_len.to(torch.int32).contiguous(), window, row_exact)
     maxp, page_size = page_table.shape[1], pool["k"].shape[1]
     # the JAX CPU default: ~128 tokens per loop block
     block_pages = max(1, min(maxp, max(1, 128 // page_size)))

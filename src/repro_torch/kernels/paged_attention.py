@@ -4,7 +4,8 @@ The port of ``repro.kernels.paged_attention._flash_pallas`` and its
 ``_merge_splits``: attention of ``q [B, L, H, hd]`` over a page pool
 ``{'k','v'[,'k_scale','v_scale']}`` of shape ``[num_pages, P, KVH, hd]``
 through ``page_table [B, maxp]``, where query lane ``i`` of sequence ``b``
-sees positions ``< kv_len[b] + i`` (decode L = 1, prefill chunk L = C).
+sees positions ``< kv_len[b] + i`` (decode L = 1, verify L = K + 1,
+prefill chunk L = C).
 The table is cut into ``splits_for(...)`` page ranges, each folded by its
 own blocks into an fp32 partial ``(acc, m, l)`` in scratch allocated here;
 a second kernel merges them in split order.  Written in CUDA C++ rather
@@ -43,7 +44,7 @@ def reset_counts() -> None:
 def _fn():
     fn = _build.load("paged_attention").paged_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
-                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -68,8 +69,13 @@ def _need(cond: bool, msg: str) -> None:
 
 def paged_attention_cuda(q: torch.Tensor, pool: dict,
                          page_table: torch.Tensor, kv_len: torch.Tensor,
-                         window: int | None) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors; returns [B, L, H, hd] in q.dtype."""
+                         window: int | None,
+                         row_exact: bool = True) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors; returns [B, L, H, hd] in q.dtype.
+    ``row_exact`` keeps every query row on the CUDA-core instance a decode
+    row takes (row i bit-equal to an L = 1 call at ``kv_len + i``); False
+    lets bf16 queries over more than 16 rows per KV head take the
+    tensor-core instance, which rounds P to bf16."""
     _need(q.is_cuda, "q must be a CUDA tensor (CPU tensors take the plain "
           "version in kernels.ref)")
     b, lanes, h, hd = q.shape
@@ -121,6 +127,7 @@ def paged_attention_cuda(q: torch.Tensor, pool: dict,
                 -1 if window is None else int(window), splits,
                 hd ** -0.5,  # rounded to fp32 by c_float, as JAX does
                 int(q.dtype == torch.bfloat16), _KV_MODE[k.dtype],
+                int(row_exact),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_attention_launch")
     _COUNTS["launches"] += 1

@@ -4,10 +4,12 @@ The port of ``repro.launch.serve``, with the same flags plus ``--device``
 (default ``cuda``) and ``--fused-attention``: initializes weights from a
 seeded ``torch.Generator``, runs the offline packer + load-time
 compression, then serves batched requests through the one-shot loop or,
-with ``--engine``, the continuous-batching paged-KV engine (``--async``:
-the overlapped loop).  Flags of features not ported yet (``--tp``,
-``--prefix-cache``, ``--speculate``, ``--inject-faults``) are accepted and
-refused with ``NotImplementedError``.
+with ``--engine``, the continuous-batching paged-KV engine:
+``--prefix-cache`` (radix prefix cache over copy-on-write pages),
+``--speculate K --draft ngram|random`` (speculative decoding),
+``--inject-faults SEED`` (deterministic allocation and step faults with
+bounded retries) and ``--async`` (the overlapped loop).  ``--tp`` is
+accepted and refused with ``NotImplementedError`` (not ported yet).
 """
 import argparse
 import dataclasses
@@ -18,7 +20,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import registry
 from repro_torch.core.linear import SparsityConfig
 from repro_torch.models import model as M
-from repro_torch.runtime import serve_loop
+from repro_torch.runtime import faults as fl, serve_loop
 
 
 def main(argv=None):
@@ -56,7 +58,7 @@ def main(argv=None):
     ap.add_argument("--max-queue", type=int, default=None)
     ap.add_argument("--deadline-steps", type=int, default=None)
     ap.add_argument("--speculate", type=int, default=0, metavar="K")
-    ap.add_argument("--draft", default="ngram")
+    ap.add_argument("--draft", default="ngram", choices=["ngram", "random"])
     ap.add_argument("--async", dest="async_loop", action="store_true")
     args = ap.parse_args(argv)
     if args.tp > 1 and not args.engine:
@@ -76,6 +78,9 @@ def main(argv=None):
                            generator=gen, device=device, dtype=torch.int32)
 
     if args.engine:
+        plan = (fl.FaultPlan(seed=args.inject_faults, alloc_fail_rate=0.08,
+                             step_error_rate=0.04)
+                if args.inject_faults is not None else None)
         ecfg = serve_loop.EngineConfig(
             max_batch=args.batch, page_size=args.page_size,
             num_pages=args.num_pages,
@@ -83,25 +88,43 @@ def main(argv=None):
             prefill_chunk=args.prefill_chunk, policy=args.policy,
             max_queue=args.max_queue, watchdog=args.watchdog, tp=args.tp,
             prefix_cache=args.prefix_cache, speculate=args.speculate,
-            async_loop=args.async_loop,
-            faults=args.inject_faults)
+            draft_source=args.draft, async_loop=args.async_loop,
+            faults=plan)
         eng = serve_loop.ServeEngine(params, cfg, ecfg, device=device)
         eng.warmup()
         for i in range(args.batch):
             eng.submit(tokens[i].tolist(), args.new_tokens, rid=i, arrival=i,
                        deadline_steps=args.deadline_steps)
         out = eng.run()
-        eng.kv.check()
+        eng.kv.check()  # pages balance, faults or not
         s = eng.stats
         print(f"[launch.serve] engine(device={device}, precision="
               f"{s.precision}, policy={ecfg.policy}): {len(out)} requests; "
               f"decode {s.decode_tok_s:.1f} tok/s; occupancy "
               f"{s.mean_occupancy:.2f}; evictions {s.evictions}; ok "
               f"{s.completed_ok}; sample: {out[0].tokens[:8]}")
+        if args.prefix_cache:
+            print(f"[launch.serve] prefix cache: hit_rate "
+                  f"{s.prefix_hit_rate:.2f}; {s.prefill_chunks_skipped} "
+                  f"chunks skipped; {s.cow_copies} COW copies")
+        if args.speculate > 0:
+            print(f"[launch.serve] speculative: K={args.speculate} "
+                  f"source={args.draft}; {s.verify_steps} verify steps; "
+                  f"accepted {s.accepted_tokens}/{s.draft_tokens} "
+                  f"(rate {s.acceptance_rate:.2f})")
         if args.async_loop:
             print(f"[launch.serve] async loop: {s.lookahead_steps} "
                   f"lookahead dispatches; host gap {s.host_gap_s * 1e3:.1f}"
                   f"ms; overlap {s.overlap_frac:.2f}; d2h {s.d2h_bytes}B")
+        if plan is not None or args.watchdog or args.max_queue is not None \
+                or args.deadline_steps is not None:
+            print(f"[launch.serve] lifecycle: ok={s.completed_ok} "
+                  f"cancelled={s.cancelled} timeouts={s.timeouts} "
+                  f"rejected={s.rejected} failed={s.failed} "
+                  f"quarantined={s.quarantined}; goodput "
+                  f"{s.goodput_tok_s:.1f} tok/s; faults_injected="
+                  f"{s.faults_injected}; p95_queue_wait="
+                  f"{s.p95_queue_wait_steps:.0f} steps; kv invariants OK")
         return
 
     toks, stats = serve_loop.generate(params, cfg, tokens, args.new_tokens)

@@ -134,21 +134,27 @@ def _chunked_sdpa(spec: AttnSpec, q, k, v, q_offset=0):
 
 
 def _decode_sdpa(spec: AttnSpec, q, k, v, kv_len):
-    """Single-query attention over the cache. q: [B, 1, H, hd];
-    k/v: [B, S_cache, KVH, hd]; kv_len: [B] valid lengths."""
-    b, _, h, hd = q.shape
+    """Decode attention over the cache for C query lanes: JAX's
+    ``_decode_sdpa`` (C = 1) and ``_verify_sdpa`` (the speculative verify
+    step, C = K + 1) in one, the same einsums and masks.  q: [B, C, H, hd],
+    lane i at absolute position ``kv_len - 1 + i``; k/v: [B, S_cache, KVH,
+    hd]; kv_len: [B] valid lengths for lane 0.  Lane i sees i more
+    positions: the draft tokens written before it in the same step."""
+    b, c, h, hd = q.shape
     s, kvh = k.shape[1], k.shape[2]
     rep = h // kvh
-    q5 = (q * hd ** -0.5).reshape(b, 1, kvh, rep, hd)
+    q5 = (q * hd ** -0.5).reshape(b, c, kvh, rep, hd)
     scores = _einsum("bqgrd,bkgd->bgrqk", q5, k).to(torch.float32)
-    k_pos = torch.arange(s, dtype=torch.int32, device=q.device)[None, :]
-    valid = k_pos < kv_len[:, None]
+    k_pos = torch.arange(s, dtype=torch.int32, device=q.device)[None, None]
+    row_len = kv_len[:, None] + torch.arange(c, dtype=torch.int32,
+                                             device=q.device)[None, :]
+    valid = k_pos < row_len[:, :, None]                       # [B, C, S]
     if spec.sliding_window is not None:
-        valid &= k_pos >= (kv_len[:, None] - spec.sliding_window)
-    scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
+        valid &= k_pos >= (row_len[:, :, None] - spec.sliding_window)
+    scores = torch.where(valid[:, None, None], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = _einsum("bgrqk,bkgd->bqgrd", p.to(v.dtype), v)
-    return out.reshape(b, 1, h, hd).to(q.dtype)
+    return out.reshape(b, c, h, hd).to(q.dtype)
 
 
 def _quant_kv(x):
@@ -283,6 +289,21 @@ def _pool_scatter(pool, page_ids, slot_ids, k_new, v_new):
     return pool
 
 
+def pool_copy_pages(pool, src_ids, dst_ids):
+    """Copy-on-write data plane: copy whole pages ``src_ids[i] ->
+    dst_ids[i]`` in every leaf of one layer's pool, in place.  Every
+    source is gathered before any write lands, so chained pairs in one
+    call stay consistent (JAX's ``leaf.at[dst].set(leaf[src])``).  A
+    padding lane names the spare page (``drop_page``) as its dst, where
+    JAX drops the write; ``src`` is clamped to the real pages as JAX
+    clamps it."""
+    src = torch.clamp(src_ids.long(), 0, drop_page(pool) - 1)
+    dst = dst_ids.long()
+    for leaf in pool.values():
+        leaf.index_copy_(0, dst, leaf.index_select(0, src))
+    return pool
+
+
 def _pool_gather(pool, page_table, dtype):
     """page_table [B, maxp] -> contiguous logical K/V [B, maxp*P, KVH, hd].
     Unallocated entries point at page 0; every position read from them is
@@ -305,22 +326,23 @@ def pool_attend(spec: AttnSpec, q, pool, page_table, kv_len,
                 sp_cfg: SparsityConfig, *, chunk_start=None):
     """THE paged-attention entry point of every paged step.
 
-    q: [B, L, H, hd] post-RoPE queries; kv_len: [B] row-0 lengths (query
-    row i sees ``kv_len + i`` positions).  ``chunk_start`` marks the
-    prefill-chunk call site, whose oracle is the chunked SDPA at
+    q: [B, L, H, hd] post-RoPE queries (decode L = 1, verify L = K + 1,
+    prefill chunk L = C); kv_len: [B] row-0 lengths (query row i sees
+    ``kv_len + i`` positions).  ``chunk_start`` marks the prefill-chunk
+    call site, whose oracle is the chunked SDPA at
     ``q_offset=chunk_start``."""
     if sp_cfg.fused_attention and spec.causal:
         from repro_torch.kernels import ops as kops
+        # every call but a prefill chunk's keeps each query row on the
+        # kernel's decode instance, so row i of a verify step is bit-equal
+        # to a decode step at kv_len + i (spec on == spec off)
         return kops.paged_attention(q, pool, page_table, kv_len,
-                                    sliding_window=spec.sliding_window)
+                                    sliding_window=spec.sliding_window,
+                                    row_exact=chunk_start is None)
     kd, vd = _pool_gather(pool, page_table, q.dtype)
     if chunk_start is not None:
         return _chunked_sdpa(spec, q, kd, vd, q_offset=chunk_start)
-    if q.shape[1] == 1:
-        return _decode_sdpa(spec, q, kd, vd, kv_len)
-    raise NotImplementedError(
-        "multi-lane paged attention outside a prefill chunk is the "
-        "speculative verify step: not ported yet (ROADMAP A.5)")
+    return _decode_sdpa(spec, q, kd, vd, kv_len)
 
 
 def paged_prefill_chunk(params, spec: AttnSpec, x, positions,
@@ -369,3 +391,34 @@ def paged_decode_step(params, spec: AttnSpec, x, sp_cfg: SparsityConfig,
 
     out = pool_attend(spec, q, pool, page_table, kv_len + 1, sp_cfg)
     return sl.apply(params["wo"], out.reshape(b, 1, spec.q_dim), sp_cfg), pool
+
+
+def paged_verify_step(params, spec: AttnSpec, x, sp_cfg: SparsityConfig,
+                      pool, page_table, kv_len, real_len, active,
+                      page_size: int):
+    """Speculative verify over the paged pool.  x: [B, C, D], per slot the
+    last emitted token and its draft tokens, right-padded to C = K + 1
+    lanes; kv_len: [B] pre-step write positions (the decode convention);
+    real_len: [B] real lanes (1 + drafts); active: [B] bool.  Row i sits
+    at kv_len + i; every real row's K/V is written first (pad lanes and
+    inactive slots into the spare page), then each row attends causally.
+    Rejected lanes are rolled back by the host not advancing kv_len past
+    them.  Returns (out [B, C, D], pool)."""
+    b, c, _ = x.shape
+    maxp = page_table.shape[1]
+    lane = torch.arange(c, dtype=torch.int32, device=x.device)
+    positions = kv_len[:, None] + lane[None, :]                   # [B, C]
+    q, k_new, v_new = _qkv(params, spec, x, positions, sp_cfg)
+
+    # pad lanes may run past the table: JAX clamps that gather, torch must
+    col = torch.clamp(positions.long() // page_size, max=maxp - 1)
+    page_ids = torch.gather(page_table, 1, col)
+    writable = (lane[None, :] < real_len[:, None]) & active[:, None]
+    page_ids = torch.where(writable, page_ids, drop_page(pool))
+    _pool_scatter(pool, page_ids.reshape(-1),
+                  (positions % page_size).reshape(-1),
+                  k_new.reshape((b * c,) + tuple(k_new.shape[2:])),
+                  v_new.reshape((b * c,) + tuple(v_new.shape[2:])))
+
+    out = pool_attend(spec, q, pool, page_table, kv_len + 1, sp_cfg)
+    return sl.apply(params["wo"], out.reshape(b, c, spec.q_dim), sp_cfg), pool

@@ -1,7 +1,7 @@
 """Model API over the architecture families the port serves so far.
 
 Port of ``repro.models.model``: decoder-only stacks dispatch to
-``transformer``; encoder-decoder models are not ported yet (ROADMAP A.7).
+``transformer``; encoder-decoder models are not ported yet (ROADMAP A.3).
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from . import transformer
 def _decoder_only(cfg: ModelConfig) -> None:
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
-                                  "not ported yet (ROADMAP A.7)")
+                                  "not ported yet (ROADMAP A.3)")
 
 
 def init(cfg: ModelConfig, gen: torch.Generator) -> dict[str, Any]:
@@ -56,3 +56,17 @@ def paged_decode_step(params, cfg: ModelConfig, token, cache, page_table,
                                          page_table, kv_len, active,
                                          page_size)
 
+
+
+def paged_verify_step(params, cfg: ModelConfig, tokens, cache, page_table,
+                      kv_len, real_len, active, page_size: int):
+    """Speculative verify step: score [B, K+1] draft lanes per slot in one
+    pass (attention-only decoder stacks)."""
+    return transformer.paged_verify_step(params, cfg, tokens, cache,
+                                         page_table, kv_len, real_len,
+                                         active, page_size)
+
+
+def paged_copy_pages(cfg: ModelConfig, cache, src_ids, dst_ids):
+    """Copy-on-write page duplication across the whole stack."""
+    return transformer.paged_copy_pages(cfg, cache, src_ids, dst_ids)

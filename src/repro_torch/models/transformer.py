@@ -4,7 +4,7 @@ Port of ``repro.models.transformer`` for the stacks this slice serves:
 ``attn``/``swa`` units with a dense SwiGLU FFN.  The JAX package scans a
 stack of ``[U, ...]`` unit parameters; the port keeps ``params['units']``
 as a list of U unit dicts (same inner keys, ``layer_i``) and loops over it
-in Python.  SSM and MoE units raise (ROADMAP A.7).  Every projection
+in Python.  SSM and MoE units raise (ROADMAP A.3).  Every projection
 routes through ``core.linear.apply`` on ``cfg.sparsity``.
 """
 from __future__ import annotations
@@ -24,10 +24,10 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: unit pattern {cfg.unit_pattern} / MoE "
             f"{cfg.moe_pattern} is not ported yet — the port serves attn/swa "
-            "units with a dense SwiGLU FFN (ROADMAP A.7)")
+            "units with a dense SwiGLU FFN (ROADMAP A.3)")
     if cfg.m_rope:
         raise NotImplementedError(f"{cfg.name}: M-RoPE not ported yet "
-                                  "(ROADMAP A.7)")
+                                  "(ROADMAP A.3)")
 
 
 def attn_spec(cfg: ModelConfig, kind: str) -> attention.AttnSpec:
@@ -189,3 +189,35 @@ def paged_decode_step(params, cfg: ModelConfig, token, cache, page_table,
         xx = _ffn(lp, cfg, xx + y)
     h = layers.rmsnorm(params["final_norm"], xx, cfg.norm_eps)
     return logits_fn(params, cfg, h)[:, 0], cache
+
+
+@torch.no_grad()
+def paged_verify_step(params, cfg: ModelConfig, tokens, cache, page_table,
+                      kv_len, real_len, active, page_size: int):
+    """Speculative verify: score C = K + 1 tokens per slot in one pass.
+    tokens: [B, C], per slot the last emitted token and its drafts,
+    right-padded; kv_len: [B] context lengths already written (the decode
+    convention); real_len: [B] real lanes (1 + drafts); active: [B] bool.
+    Returns (logits [B, C, V], cache): logits[:, i] predicts the token
+    after lane i, and the host accepts the longest agreeing prefix."""
+    xx = _embed(params, cfg, tokens)
+    for u, key, kind in _layers(cfg):
+        lp = params["units"][u][key]
+        hh = layers.rmsnorm(lp["pre_norm"], xx, cfg.norm_eps)
+        y, _ = attention.paged_verify_step(
+            lp["mixer"], attn_spec(cfg, kind), hh, cfg.sparsity,
+            cache[u][key], page_table, kv_len, real_len, active, page_size)
+        xx = _ffn(lp, cfg, xx + y)
+    h = layers.rmsnorm(params["final_norm"], xx, cfg.norm_eps)
+    return logits_fn(params, cfg, h), cache
+
+
+@torch.no_grad()
+def paged_copy_pages(cfg: ModelConfig, cache, src_ids, dst_ids):
+    """Copy-on-write step: copy pages ``src_ids[i] -> dst_ids[i]`` in
+    every attention layer's pool, in place (one logical page id addresses
+    the same slot in every layer, so one host decision copies the whole
+    stack).  A dst naming the spare page is a padding lane."""
+    for u, key, _ in _layers(cfg):
+        attention.pool_copy_pages(cache[u][key], src_ids, dst_ids)
+    return cache

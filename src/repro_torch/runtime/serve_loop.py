@@ -10,15 +10,20 @@ free their KV pages.  Scheduling and page accounting are the host-side
 copies in ``scheduler`` / ``kv_cache``.  The two fixed-shape model steps
 read their inputs from static device buffers and, on CUDA, are captured
 once each as a CUDA graph (the counterpart of JAX's jitted steps, compiled
-once) and replayed.  ``async_loop`` is JAX's overlapped loop (DESIGN.md
-§15): the host applies step N's tokens while the device runs step N+1.
+once) and replayed.  Two more fixed-shape steps serve the engine's
+features: the copy-on-write page copy behind the radix prefix cache
+(DESIGN.md §11) and the speculative verify step (§14).  Faults injected
+by ``faults.FaultInjector`` meet bounded step retries (§12).
+``async_loop`` is JAX's overlapped loop (DESIGN.md §15): the host applies
+step N's tokens while the device runs step N+1.
 
-Not ported yet (raise ``NotImplementedError``, ROADMAP A.3 / A.5): tensor
-parallelism, the prefix cache, speculative decoding and fault injection.
+Not ported yet (raises ``NotImplementedError``, ROADMAP A.5): tensor
+parallelism.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 import time
 from typing import Any
@@ -30,10 +35,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import linear as sl
 from repro_torch.kernels import ops as kops
 from repro_torch.models import model as M
+from repro_torch.runtime import draft as draft_mod, faults as fl
 from repro_torch.runtime import scheduler as sch
 from repro_torch.runtime.kv_cache import KVCacheManager, PagedKVConfig
 from repro_torch.runtime.scheduler import (DecodeBatch, PrefillChunk,
-                                           Request, Scheduler, make_policy)
+                                           Request, Scheduler, VerifyBatch,
+                                           make_policy)
 
 
 @dataclasses.dataclass
@@ -113,33 +120,46 @@ class EngineConfig:
     scheduling with the device (DESIGN.md §15): decode dispatch is
     decoupled from applying its tokens, and on the lookahead fast path
     step N's device-resident ids feed step N+1 with no host round trip.
-    Streams, traces and statuses equal ``async_loop=False``.
+    Streams, traces and statuses equal ``async_loop=False``; speculation
+    and a live fault injector always take the synchronous path.
 
-    ``tp``, ``prefix_cache``, ``speculate`` and ``faults`` keep the JAX
-    names and must stay at their defaults until they are ported."""
+    ``prefix_cache`` turns on radix-prefix reuse over ref-counted
+    copy-on-write pages (DESIGN.md §11): an admission that shares
+    full-page prompt blocks with earlier traffic forks the cached pages
+    and prefills only the uncached suffix; a shared page is copied by the
+    COW step before a step writes into it.  ``speculate=K > 0`` turns on
+    self-speculative decoding (§14): ``draft_source`` (``ngram`` |
+    ``random``) proposes up to K tokens per running sequence and the
+    ``[max_batch, K+1]`` verify step scores them in one pass; the longest
+    agreeing prefix is accepted, so greedy streams equal ``speculate=0``.
+    ``faults`` (a ``faults.FaultPlan``) injects deterministic faults
+    (§12); a failed step dispatch is retried up to ``step_retries`` times
+    with a backoff of ``retry_backoff_s * 2**attempt`` (jittered), then
+    fails the decision's requests.  ``tp`` keeps the JAX name and must
+    stay 1 until tensor parallelism is ported."""
     max_batch: int = 4        # decode slots
     page_size: int = 8        # tokens per KV page
     num_pages: int = 64       # physical pages per attention layer
     max_seq_len: int = 128    # prompt + generated cap per sequence
     prefill_chunk: int = 16   # prompt tokens per engine step
+    tp: int = 1
+    prefix_cache: bool = False  # radix prefix cache + COW pages (§11)
     policy: str = "fcfs"      # scheduler policy name (fcfs | priority)
-    max_queue: int | None = None  # bounded admission queue
-    watchdog: bool = False    # assert kv invariants after every decision
+    speculate: int = 0        # max draft tokens per verify step (0 = off)
+    draft_source: str = "ngram"  # draft source name (ngram | random)
     device_sample: bool = True  # fetch on-device argmax ids, not logits
     async_loop: bool = False    # overlap host scheduling with device steps
-    tp: int = 1
-    prefix_cache: bool = False
-    speculate: int = 0
-    faults: Any = None
+    max_queue: int | None = None  # bounded admission queue
+    watchdog: bool = False    # assert kv invariants after every decision
+    step_retries: int = 2     # transient step-error retries before FAILED
+    retry_backoff_s: float = 0.0  # backoff base between step retries
+    faults: Any = None        # faults.FaultPlan: deterministic injection
 
     def __post_init__(self):
-        unported = {"tp": self.tp != 1, "prefix_cache": self.prefix_cache,
-                    "speculate": self.speculate != 0,
-                    "faults": self.faults is not None}
-        on = [k for k, v in unported.items() if v]
-        if on:
+        if self.tp != 1:
             raise NotImplementedError(
-                f"EngineConfig {on}: not ported yet (ROADMAP A.3 / A.5)")
+                f"EngineConfig tp={self.tp}: tensor parallelism is not "
+                "ported yet (ROADMAP A.5)")
 
     def kv_config(self) -> PagedKVConfig:
         return PagedKVConfig(page_size=self.page_size,
@@ -166,7 +186,10 @@ class Completion:
 
 @dataclasses.dataclass
 class EngineStats:
-    """Engine-level counters accumulated over a ``run``."""
+    """Engine-level counters accumulated over a ``run``.
+    ``prefill_tokens`` counts first-pass prompt tokens only; the
+    re-prefills that recompute-preemption forces are
+    ``recompute_tokens``."""
     steps: int = 0
     wall_s: float = 0.0
     warmup_s: float = 0.0
@@ -177,11 +200,29 @@ class EngineStats:
     evictions: int = 0
     mean_occupancy: float = 0.0
     precision: str = "none"
+    # speculative decoding (DESIGN.md §14)
+    verify_steps: int = 0     # VerifyBatch steps executed
+    draft_tokens: int = 0     # draft tokens proposed
+    accepted_tokens: int = 0  # draft tokens accepted (bonus tokens excluded)
+    # prefix cache (DESIGN.md §11)
+    prefix_cache: bool = False
+    prefix_hit_tokens: int = 0       # prompt tokens served from cached pages
+    prefill_chunks_skipped: int = 0  # prefill steps avoided by hits
+    cow_copies: int = 0              # device page copies (copy-on-write)
+    cached_page_evictions: int = 0   # LRU reclaims of refcount-0 pages
+    # request lifecycle (DESIGN.md §12)
     completed_ok: int = 0
     cancelled: int = 0
     timeouts: int = 0
     rejected: int = 0
     failed: int = 0
+    quarantined: int = 0             # watchdog invariant quarantines
+    admission_deferrals: int = 0     # admissions deferred by alloc failure
+    step_errors: int = 0             # transient step-dispatch faults seen
+    step_retries: int = 0            # retries that recovered a step
+    faults_injected: int = 0         # injector-fired faults (all sites)
+    goodput_tokens: int = 0          # tokens of OK completions only
+    p95_queue_wait_steps: float = 0.0
     # overlapped loop instrumentation (DESIGN.md §15)
     host_gap_s: float = 0.0     # device-idle time: step ready -> next dispatch
     overlap_frac: float = 0.0   # 1 - host_gap_s/wall_s (device-busy fraction)
@@ -191,6 +232,23 @@ class EngineStats:
     @property
     def decode_tok_s(self) -> float:
         return self.decode_tokens / max(self.wall_s, 1e-9)
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Accepted fraction of proposed draft tokens (0 when no drafts)."""
+        return self.accepted_tokens / max(self.draft_tokens, 1)
+
+    @property
+    def goodput_tok_s(self) -> float:
+        """Throughput counting only tokens delivered in OK completions."""
+        return self.goodput_tokens / max(self.wall_s, 1e-9)
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Cached fraction of all prompt tokens that needed KV."""
+        total = (self.prefix_hit_tokens + self.prefill_tokens
+                 + self.recompute_tokens)
+        return self.prefix_hit_tokens / max(total, 1)
 
 
 class _Step:
@@ -255,8 +313,11 @@ class _Step:
 class ServeEngine:
     """Continuous-batching engine over the SlideSparse pipeline.
 
-    Two fixed-shape steps: a [1, prefill_chunk] prompt-chunk step and a
-    [max_batch] decode step.  Every linear goes through ``linear.apply``
+    Fixed-shape steps: a [1, prefill_chunk] prompt-chunk step, a
+    [max_batch] decode step, a [_cow_lanes] copy-on-write page-copy step
+    and, with ``speculate=K > 0``, a [max_batch, K+1] verify step.
+    Scheduling, drafting, accept/reject and page accounting stay on the
+    host.  Every linear goes through ``linear.apply``
     (on the card the compressed-matmul kernel, or in ``mode="slided"`` the
     fused slided matmul) and, with ``sparsity.fused_attention``, every
     paged attention step through the paged-attention kernel.  Greedy
@@ -266,7 +327,15 @@ class ServeEngine:
     of its inputs to a static device buffer and one run of the step.  On
     CUDA ``warmup`` captures each step once as a CUDA graph (JAX's
     compile-once contract, ``captures`` == 1 per step) and every step
-    replays it; a capture or replay failure raises.  On the CPU the same
+    replays it; a capture or replay failure raises.
+
+    With ``prefix_cache`` the engine hashes each prompt's full pages at
+    enqueue, the scheduler forks cached pages in at admission, and the
+    COW step copies a shared page before the step that writes into it;
+    paged K/V writes are token-local, so cache-on streams equal cache-off.
+    With ``faults`` the injector's ``step`` site fires before a step's
+    inputs are copied, so a retry is always safe; a poisoned request
+    fails at its first prefill dispatch.  On the CPU the same
     code runs eagerly.  The engine's only device -> host synchronization
     is ``_fetch``, which waits for one step's sampled ids.  The KV page
     pools are updated in place.  ``first_logits[rid]`` keeps the logits
@@ -285,13 +354,28 @@ class ServeEngine:
             raise NotImplementedError("paged engine is decoder-only")
         self.device = resolve_device(device)
         self.params, self.cfg = params, cfg
+        if ec.speculate < 0:
+            raise ValueError(f"speculate={ec.speculate} must be >= 0")
+        # prefix-cache entries are keyed to the exact serving recipe
         namespace = (f"{cfg.name}|{cfg.sparsity.recipe.name}"
                      f"|kv={cfg.kv_cache_dtype}|ps={ec.page_size}")
-        self.kv = KVCacheManager(ec.kv_config(), namespace=namespace)
+        self.injector = (fl.FaultInjector(ec.faults)
+                         if ec.faults is not None else None)
+        self.kv = KVCacheManager(ec.kv_config(), namespace=namespace,
+                                 injector=self.injector)
+        self.draft_source = None
+        if ec.speculate > 0:
+            kw = ({"vocab_size": cfg.vocab_size}
+                  if ec.draft_source == "random" else {})
+            self.draft_source = draft_mod.make_draft_source(ec.draft_source,
+                                                            **kw)
         self.sched = Scheduler(self.kv, ec.prefill_chunk,
                                policy=make_policy(ec.policy),
+                               prefix_cache=ec.prefix_cache,
                                max_queue=ec.max_queue,
-                               watchdog=ec.watchdog)
+                               watchdog=ec.watchdog,
+                               speculate=ec.speculate,
+                               draft_source=self.draft_source)
         self.cache = M.make_paged_cache(cfg, ec.num_pages, ec.page_size,
                                         ec.max_batch, self.device)
         self.completions: dict[int, Completion] = {}
@@ -301,6 +385,11 @@ class ServeEngine:
         self._graphed = self.device.type == "cuda" and not _eager
         maxp = ec.kv_config().max_pages_per_seq
         bmax = ec.max_batch
+        # one COW call copies a decode batch's write pages (<= 1 per slot)
+        # or a prefill chunk's page span
+        self._cow_lanes = max(bmax, -(-ec.prefill_chunk // ec.page_size) + 1)
+        # verify lanes: the last emitted token + up to `speculate` drafts
+        self._verify_lanes = ec.speculate + 1
         self._steps = {
             "prefill": _Step({"tokens": (1, ec.prefill_chunk),
                               "page_table": (1, maxp), "start": (),
@@ -308,12 +397,23 @@ class ServeEngine:
                              self.device),
             "decode": _Step({"tokens": (bmax,), "page_table": (bmax, maxp),
                              "kv_len": (bmax,), "active": (bmax,)},
-                            self._decode_body, self.device)}
+                            self._decode_body, self.device),
+            "cow": _Step({"src": (self._cow_lanes,),
+                          "dst": (self._cow_lanes,)}, self._cow_body,
+                         self.device)}
+        if ec.speculate > 0:
+            self._steps["verify"] = _Step(
+                {"tokens": (bmax, self._verify_lanes),
+                 "page_table": (bmax, maxp), "kv_len": (bmax,),
+                 "real_len": (bmax,), "active": (bmax,)},
+                self._verify_body, self.device)
         # overlapped-loop state (DESIGN.md §15): the dispatched-but-not-
-        # applied decode step (decision + its queued ids copy) and the
-        # instant the last fetched step output became ready
+        # applied decode step (decision + its queued ids copy), the
+        # instant the last fetched step output became ready, and the
+        # backoff occurrence counter (its jitter)
         self._pending = None
         self._t_ready: float | None = None
+        self._backoff_n = 0
 
     @property
     def captures(self) -> dict[str, int]:
@@ -334,31 +434,105 @@ class ServeEngine:
             self.ecfg.page_size)
         return torch.argmax(logits, -1).to(torch.int32), logits
 
+    def _verify_body(self, inp):
+        logits, _ = M.paged_verify_step(
+            self.params, self.cfg, inp["tokens"], self.cache,
+            inp["page_table"], inp["kv_len"], inp["real_len"],
+            inp["active"] != 0, self.ecfg.page_size)
+        return torch.argmax(logits, -1).to(torch.int32), logits
+
+    def _cow_body(self, inp):
+        M.paged_copy_pages(self.cfg, self.cache, inp["src"], inp["dst"])
+
+    def _dispatch(self, name: str, **inputs) -> _Step:
+        """Copy a step's inputs to its static buffer, through the fault
+        injector's ``step`` site with bounded retry and backoff: a
+        :class:`faults.TransientStepError` fires before anything is
+        copied, so retrying is always safe.  Exhausting ``step_retries``
+        raises it for the caller to fail the decision's requests.  The
+        caller runs the returned step."""
+        if self.injector is not None:
+            attempts = self.ecfg.step_retries + 1
+            for attempt in range(attempts):
+                if not self.injector.fire("step"):
+                    break
+                self.stats.step_errors += 1
+                if attempt + 1 >= attempts:
+                    raise fl.TransientStepError(
+                        f"injected step failure persisted through "
+                        f"{self.ecfg.step_retries} retries")
+                self.stats.step_retries += 1
+                if self.ecfg.retry_backoff_s:
+                    self._backoff_wait(attempt)
+        st = self._steps[name]
+        self._note_dispatch()
+        st.fill(**inputs)
+        return st
+
+    def _backoff_wait(self, attempt: int) -> None:
+        """Backoff between step retries: ``retry_backoff_s * 2**attempt``
+        with a deterministic jitter of 0.5x-1.5x (blake2b of the fault seed
+        and the backoff occurrence), so a schedule replays exactly.  A
+        deferred decode apply is drained first and only the rest of the
+        delay is slept."""
+        base = self.ecfg.retry_backoff_s * (2 ** attempt)
+        seed = self.ecfg.faults.seed if self.ecfg.faults is not None else 0
+        h = hashlib.blake2b(f"backoff|{seed}|{self._backoff_n}".encode(),
+                            digest_size=8).digest()
+        self._backoff_n += 1
+        delay = base * (0.5 + int.from_bytes(h, "big") / 2.0 ** 64)
+        t0 = time.time()
+        self._apply_pending()
+        remaining = delay - (time.time() - t0)
+        if remaining > 0:
+            time.sleep(remaining)
+
     def _prefill(self, tokens, page_table, start: int, length: int):
         """Dispatch one prompt chunk; returns its (ids, logits) outputs."""
-        st = self._steps["prefill"]
-        self._note_dispatch()
-        st.fill(tokens=tokens, page_table=page_table, start=start,
-                real_len=length)
-        return st.run()
+        return self._dispatch("prefill", tokens=tokens, page_table=page_table,
+                              start=start, real_len=length).run()
 
     def _decode(self, token, page_table, kv_len, active):
         """Dispatch one decode step; ``token=None`` threads the previous
         decode step's device-resident ids in as this step's tokens (a
         device-side copy queued before the step)."""
-        st = self._steps["decode"]
-        self._note_dispatch()
-        st.fill(tokens=np.zeros_like(kv_len) if token is None else token,
-                page_table=page_table, kv_len=kv_len, active=active)
+        st = self._dispatch(
+            "decode", tokens=np.zeros_like(kv_len) if token is None
+            else token, page_table=page_table, kv_len=kv_len, active=active)
         if token is None:
             st.inputs["tokens"].copy_(st.out[0])
         return st.run()
 
+    def _verify(self, tokens, page_table, kv_len, real_len, active):
+        """Dispatch one verify step; returns its ([B, K+1] ids, logits)."""
+        return self._dispatch("verify", tokens=tokens, page_table=page_table,
+                              kv_len=kv_len, real_len=real_len,
+                              active=active).run()
+
+    def _run_cow(self, pairs) -> None:
+        """Copy the host-decided copy-on-write pages on the device before
+        the step that writes into the (now exclusive) dst pages, in calls
+        of the fixed ``_cow_lanes`` shape; unused lanes copy page 0 into
+        the spare page."""
+        if not pairs:
+            return
+        st, n = self._steps["cow"], self._cow_lanes
+        for i in range(0, len(pairs), n):
+            src = np.zeros((n,), np.int32)
+            dst = np.full((n,), self.ecfg.num_pages, np.int32)
+            for j, (a, b) in enumerate(pairs[i:i + n]):
+                src[j], dst[j] = a, b
+            self._note_dispatch()
+            st.fill(src=src, dst=dst)
+            st.run()
+        self.stats.cow_copies += len(pairs)
+
     # ------------------------------------------------------------ warmup
     def warmup(self) -> float:
-        """Run both steps once on dummy inputs that write nothing real (a
-        zero-length prefill chunk, a decode step with every slot
-        inactive: their writes land in the spare page): the kernels build,
+        """Run every step once on dummy inputs that write nothing real (a
+        zero-length prefill chunk, decode and verify steps with every slot
+        inactive, a COW call whose lanes all copy into the spare page:
+        their writes land in the spare page): the kernels build,
         load and make their one-time set-up here, outside any measured
         window.  On CUDA each step is then captured as a CUDA graph, once
         per engine, and asserted to hold exactly one capture.  The page
@@ -372,6 +546,14 @@ class ServeEngine:
                  "decode": dict(tokens=np.zeros(ec.max_batch),
                                 page_table=ptab,
                                 kv_len=np.zeros(ec.max_batch),
+                                active=np.zeros(ec.max_batch)),
+                 "cow": dict(src=np.zeros(self._cow_lanes),
+                             dst=np.full(self._cow_lanes, ec.num_pages)),
+                 "verify": dict(tokens=np.zeros((ec.max_batch,
+                                                 self._verify_lanes)),
+                                page_table=ptab,
+                                kv_len=np.zeros(ec.max_batch),
+                                real_len=np.ones(ec.max_batch),
                                 active=np.zeros(ec.max_batch))}
         for name, st in self._steps.items():
             st.fill(**dummy[name])
@@ -390,7 +572,7 @@ class ServeEngine:
 
     def _check_captures(self) -> None:
         if self._graphed:
-            assert self.captures == {"prefill": 1, "decode": 1}, \
+            assert all(n == 1 for n in self.captures.values()), \
                 f"each step must be captured exactly once: {self.captures}"
 
     # ------------------------------------------------------------ intake
@@ -408,9 +590,14 @@ class ServeEngine:
         if not prompt:
             raise ValueError("prompt must be non-empty")
         self._prompts[rid] = list(prompt)
+        # the chained full-page hashes ride the request, so admission can
+        # probe the prefix index
+        hashes = (self.kv.hashes_for(prompt)
+                  if self.ecfg.prefix_cache else None)
         self.sched.submit(Request(
             rid=rid, prompt=list(prompt), max_new_tokens=max_new_tokens,
             arrival=arrival, eos_id=eos_id, priority=priority,
+            block_hashes=hashes,
             deadline_step=(arrival + deadline_steps
                            if deadline_steps is not None else None),
             deadline_t=(time.monotonic() + deadline_s
@@ -499,11 +686,13 @@ class ServeEngine:
         no safe lookahead the pending step is applied first and the
         decision falls through to the synchronous path, which then sees
         exactly the state the synchronous loop would have: async-on
-        traces equal async-off."""
+        traces equal async-off.  A live fault injector turns the fast path
+        off: the lookahead's allocations would shift its schedule."""
         self._ensure_captured()
         self.stats.steps += 1
         if self.ecfg.async_loop and self._pending is not None:
-            la = self.sched.lookahead_decode(self._pending[0])
+            la = (self.sched.lookahead_decode(self._pending[0])
+                  if self.injector is None else None)
             if la is not None:
                 return self._threaded_decode(la)
             self._apply_pending()
@@ -513,7 +702,7 @@ class ServeEngine:
     def _threaded_decode(self, la: DecodeBatch) -> list[Completion]:
         """Fast-path decode dispatch: step N+1 starts from step N's
         on-device ids before step N's results reach the host."""
-        batch, _ = self._pending
+        self._run_cow(la.cow)  # empty: lookahead write pages are exclusive
         bmax = self.ecfg.max_batch
         kvl = np.zeros((bmax,), np.int32)
         active = np.zeros((bmax,), bool)
@@ -539,50 +728,113 @@ class ServeEngine:
         decision = self.sched.next_decision()
         if decision is None:
             return self._drain_finished()
-        if isinstance(decision, PrefillChunk):
-            seq, start, length = decision.seq, decision.start, decision.length
-            chunk = seq.prompt[start:start + length]
-            chunk = chunk + [0] * (self.ecfg.prefill_chunk - length)
-            pt = self.kv.page_table_array()[seq.slot:seq.slot + 1]
-            ids, logits = self._prefill([chunk], pt, start, length)
-            self.sched.completed_prefill(decision)
-            if not seq.prefilling:  # prompt done -> first token
-                # the static output is overwritten by the next chunk
-                self.first_logits[seq.rid] = logits[0].clone()
-                # mid-prompt chunks fetch nothing; the last one [1] int32,
-                # or the logits row on the host-sample path
-                if self.ecfg.device_sample:
-                    tok = int(self._fetch(self._to_host(ids))[0])
-                else:
-                    tok = int(np.argmax(self._fetch(
-                        self._to_host(logits[0].float()))))
-                self.sched.append_token(seq, tok)
-        else:
-            assert isinstance(decision, DecodeBatch)
-            bmax = self.ecfg.max_batch
-            token = np.zeros((bmax,), np.int32)
-            kvl = np.zeros((bmax,), np.int32)
-            active = np.zeros((bmax,), bool)
-            for seq in decision.seqs:
-                token[seq.slot] = seq.out_tokens[-1]
-                kvl[seq.slot] = seq.kv_len - 1  # context written
-                active[seq.slot] = True
-            ids, logits = self._decode(token, self.kv.page_table_array(),
-                                       kvl, active)
-            if self.ecfg.async_loop:
-                # defer the apply: the tokens land at the next step() /
-                # cancel() boundary, overlapped with host scheduling
-                self._pending = (decision, self._to_host(ids))
-                return self._drain_finished()
-            if self.ecfg.device_sample:
-                toks = self._fetch(self._to_host(ids))          # [B] int32
+        if (isinstance(decision, PrefillChunk) and self.injector is not None
+                and self.injector.poisoned(decision.seq.rid)):
+            # fail at dispatch, before the step or its COW copies run (the
+            # pairs all belong to this sequence, whose pages are freed)
+            self.sched.fail(decision.seq, sch.REASON_POISONED)
+            return self._drain_finished()
+        self._run_cow(decision.cow)
+        try:
+            if isinstance(decision, PrefillChunk):
+                self._prefill_chunk(decision)
+            elif isinstance(decision, VerifyBatch):
+                self._verify_batch(decision)
             else:
-                toks = np.argmax(self._fetch(self._to_host(logits.float())),
-                                 axis=-1)
-            for seq in decision.seqs:
-                self.sched.append_token(seq, int(toks[seq.slot]))
+                assert isinstance(decision, DecodeBatch)
+                if self._decode_batch(decision):
+                    return self._drain_finished()
+        except fl.TransientStepError:
+            # retries exhausted before anything was copied: fail the
+            # decision's requests and keep serving everyone else
+            doomed = ([decision.seq] if isinstance(decision, PrefillChunk)
+                      else list(decision.seqs))
+            for seq in doomed:
+                self.sched.fail(seq, sch.REASON_STEP_ERROR)
         self.sched.retire_finished()
         return self._drain_finished()
+
+    def _prefill_chunk(self, decision: PrefillChunk) -> None:
+        seq, start, length = decision.seq, decision.start, decision.length
+        chunk = seq.prompt[start:start + length]
+        chunk = chunk + [0] * (self.ecfg.prefill_chunk - length)
+        pt = self.kv.page_table_array()[seq.slot:seq.slot + 1]
+        ids, logits = self._prefill([chunk], pt, start, length)
+        self.sched.completed_prefill(decision)
+        if not seq.prefilling:  # prompt done -> first token
+            # the static output is overwritten by the next chunk
+            self.first_logits[seq.rid] = logits[0].clone()
+            # mid-prompt chunks fetch nothing; the last one [1] int32,
+            # or the logits row on the host-sample path
+            if self.ecfg.device_sample:
+                tok = int(self._fetch(self._to_host(ids))[0])
+            else:
+                tok = int(np.argmax(self._fetch(
+                    self._to_host(logits[0].float()))))
+            self.sched.append_token(seq, tok)
+
+    def _verify_batch(self, decision: VerifyBatch) -> None:
+        bmax, lanes = self.ecfg.max_batch, self._verify_lanes
+        token = np.zeros((bmax, lanes), np.int32)
+        kvl = np.zeros((bmax,), np.int32)
+        rlen = np.ones((bmax,), np.int32)
+        active = np.zeros((bmax,), bool)
+        for seq, drft in zip(decision.seqs, decision.drafts):
+            token[seq.slot, 0] = seq.out_tokens[-1]
+            token[seq.slot, 1:1 + len(drft)] = drft
+            kvl[seq.slot] = seq.kv_len - 1  # context written
+            rlen[seq.slot] = 1 + len(drft)
+            active[seq.slot] = True
+        ids, logits = self._verify(token, self.kv.page_table_array(), kvl,
+                                   rlen, active)
+        if self.ecfg.device_sample:
+            argmax_all = self._fetch(self._to_host(ids))    # [B, K+1] int32
+        else:
+            argmax_all = np.argmax(self._fetch(self._to_host(
+                logits.float())), axis=-1)
+        results = []
+        for seq, drft in zip(decision.seqs, decision.drafts):
+            # lane i's logits predict the token after lane i; lanes past
+            # 1 + len(drft) are padding, never read
+            argmax = [int(t) for t in argmax_all[seq.slot, :1 + len(drft)]]
+            n_acc, emitted = draft_mod.accept_drafts(drft, argmax)
+            eos = seq.req.eos_id
+            if eos is not None and eos in emitted:
+                # tokens after eos were never generated; if the cut drops
+                # the bonus token, every emitted token is an accepted draft
+                emitted = emitted[:emitted.index(eos) + 1]
+                n_acc = min(n_acc, len(emitted))
+            results.append((n_acc, emitted))
+        # appends the tokens, counts acceptance, truncates the rejected
+        # suffix's pages (the KV rollback)
+        self.sched.completed_verify(decision, results)
+
+    def _decode_batch(self, decision: DecodeBatch) -> bool:
+        """Run one decode step; True when its apply is deferred (the
+        overlapped loop)."""
+        bmax = self.ecfg.max_batch
+        token = np.zeros((bmax,), np.int32)
+        kvl = np.zeros((bmax,), np.int32)
+        active = np.zeros((bmax,), bool)
+        for seq in decision.seqs:
+            token[seq.slot] = seq.out_tokens[-1]
+            kvl[seq.slot] = seq.kv_len - 1  # context written
+            active[seq.slot] = True
+        ids, logits = self._decode(token, self.kv.page_table_array(), kvl,
+                                   active)
+        if self.ecfg.async_loop:
+            # defer the apply: the tokens land at the next step() /
+            # cancel() boundary, overlapped with host scheduling
+            self._pending = (decision, self._to_host(ids))
+            return True
+        if self.ecfg.device_sample:
+            toks = self._fetch(self._to_host(ids))          # [B] int32
+        else:
+            toks = np.argmax(self._fetch(self._to_host(logits.float())),
+                             axis=-1)
+        for seq in decision.seqs:
+            self.sched.append_token(seq, int(toks[seq.slot]))
+        return False
 
     def run(self, on_step=None) -> dict[int, Completion]:
         """Drive until every submitted request reaches a terminal status.
@@ -607,7 +859,21 @@ class ServeEngine:
         s.prefill_tokens, s.evictions = ss.prefill_tokens, ss.evicted
         s.recompute_tokens = ss.recompute_tokens
         s.mean_occupancy = ss.mean_occupancy
+        s.verify_steps = ss.verify_steps
+        s.draft_tokens = ss.draft_tokens
+        s.accepted_tokens = ss.accepted_tokens
+        s.prefix_cache = self.ecfg.prefix_cache
+        s.prefix_hit_tokens = ss.prefix_hit_tokens
+        s.prefill_chunks_skipped = ss.prefill_chunks_skipped
+        s.cached_page_evictions = self.kv.pool.cached_evictions
         s.cancelled, s.timeouts = ss.cancelled, ss.timeouts
         s.rejected, s.failed = ss.rejected, ss.failed
+        s.quarantined = ss.quarantined
+        s.admission_deferrals = ss.admission_deferrals
+        s.p95_queue_wait_steps = ss.queue_wait_pct(95.0)
         s.completed_ok = sum(1 for c in self.completions.values() if c.ok)
+        s.goodput_tokens = sum(len(c.tokens)
+                               for c in self.completions.values() if c.ok)
+        if self.injector is not None:
+            s.faults_injected = self.injector.total_injected
         return dict(self.completions)

@@ -6,7 +6,7 @@
   True``, its jnp flash mirror) serve the same weights and the same
   traffic — staggered arrivals plus one request that joins mid-flight —
   and must emit IDENTICAL greedy streams for both modes and the ``none``,
-  ``int8``, ``fp8`` and ``w4`` recipes.
+  ``int8``, ``fp8`` and ``w4`` recipes, and for int8 with int8 KV pages.
 * Slided int8 == compressed int8 in the port, streams and first-token
   logits bit for bit (the gate chip_smoke holds on the card); the slided
   weights, stored as the fused kernel's 2:4 operand, invert to JAX's
@@ -38,7 +38,8 @@ from repro_torch.core import linear as tlin
 from repro_torch.kernels import fused_slide_matmul as tfsm
 from repro_torch.models import attention as tattn, layers as tlayers
 from repro_torch.models import model as TM, transformer as ttf
-from repro_torch.runtime import kv_cache as tkv, scheduler as tsch
+from repro_torch.runtime import faults as tfl, kv_cache as tkv
+from repro_torch.runtime import scheduler as tsch
 from repro_torch.runtime import serve_loop as tserve
 
 ARCH = "h2o-danube-3-4b"
@@ -82,16 +83,19 @@ def _tcfg(mode, recipe):
                                    fused_attention=True))
 
 
-@pytest.mark.parametrize("recipe", ["none", "int8", "fp8", "w4"])
+@pytest.mark.parametrize("recipe,kv", [
+    ("none", "bfloat16"), ("int8", "bfloat16"), ("fp8", "bfloat16"),
+    ("w4", "bfloat16"), ("int8", "int8")],
+    ids=["none", "int8", "fp8", "w4", "int8-kvint8"])
 @pytest.mark.parametrize("mode", ["compressed", "slided"])
-def test_engine_streams_match_jax_engine(jax_tree, mode, recipe):
+def test_engine_streams_match_jax_engine(jax_tree, mode, recipe, kv):
     prompts, late = _traffic()
-    jcfg = dataclasses.replace(jreg.smoke_config(ARCH),
+    jcfg = dataclasses.replace(jreg.smoke_config(ARCH), kv_cache_dtype=kv,
                                sparsity=jlin.SparsityConfig(
                                    pattern=(6, 8), mode=mode,
                                    recipe=recipe, use_pallas=False,
                                    fused_attention=True))
-    tcfg = _tcfg(mode, recipe)
+    tcfg = dataclasses.replace(_tcfg(mode, recipe), kv_cache_dtype=kv)
     jeng = jserve.ServeEngine(jserve.pack_params(jax_tree, jcfg), jcfg,
                               jserve.EngineConfig(**ECFG))
     want = _serve(jeng, prompts, late)
@@ -304,8 +308,12 @@ def test_scheduler_copy_makes_jax_decisions(seed):
 
 
 def test_engine_refuses_unported_features():
-    for kw in ({"tp": 2}, {"prefix_cache": True}, {"speculate": 2},
-               {"faults": object()}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tserve.EngineConfig(**kw)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tserve.EngineConfig(tp=2)
     assert tserve.EngineConfig(async_loop=True).async_loop
+    # the engine features of the JAX engine construct
+    plan = tfl.FaultPlan(seed=1, step_error_rate=0.1)
+    for kw in ({"prefix_cache": True}, {"speculate": 3},
+               {"faults": plan}):
+        ecfg = tserve.EngineConfig(**kw)
+        assert all(getattr(ecfg, k) == v for k, v in kw.items())
