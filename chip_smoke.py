@@ -81,7 +81,32 @@ Phases (any failed check exits nonzero):
    one-shot ``generate``: identical streams, or each first divergence a
    tie within rounding (one-shot top-2 margin below max|engine -
    one-shot| of the logits there);
-8. a ``kernels`` JSON line, the card line, and the final result line.
+8. the model families (ROADMAP A.3): the kernel shapes they add held
+   against the plain versions (B2 at head_dim 64 with 3 query heads per
+   KV head, window off; B1 and B3 int8 bit-equal at N = 48, 128, 512,
+   1536, 3072, 49155, 50280 and K = 1536, 3072), then granite-moe-3b-a800m
+   (attention + MoE: B1 + B2 compressed, B3 + B2 slided) and mamba2-780m
+   (Mamba-2 SSD: B1 or B3 alone, ``wo`` drawn at random), each at full
+   width and depth, int8, bf16, fused attention, batch 4, page 16, chunk
+   128, one seeded draw packed both ways: no host sync, one capture per
+   step, graphed == eager and slided == compressed bit for bit; granite's
+   last-prefill logits at its capacity factor each below both of that
+   request's planted faults' readings (a chunk and a whole prompt drop
+   different MoE slots), and at capacity factor E / k, where nothing is
+   dropped, within LOGIT_RL2 and each below every planted fault's reading;
+   mamba2's schedule with a decode step between two prefill chunks of
+   one request; the overlapped loop (streams held to the synchronous
+   loop for every request that never shared a decode step with lane
+   garbage under MoE capacity, trace and launches whole); a profile of
+   graphed decode steps, graph nodes per step and eager, graphed and
+   overlapped decode tok/s in turns; the float gate on mamba2 at full
+   depth (recipe none, fp32); and ``launch/serve_batched.py``'s granite
+   engine demo (fp32 activations) with bf16 and with fp32 KV pages, each
+   divergence from one-shot logged with the one-shot top-2 margin there
+   and held to a tie within rounding, and every stream equal to one-shot
+   with fp32 pages.
+9. a ``kernels`` JSON line (the five kernels, launches of the
+   h2o-danube-3-4b runs), the card line, and the final result line.
 
 It imports neither JAX nor the JAX package, and prints every table it
 measures on standard output.
@@ -1078,9 +1103,14 @@ def _hold_graphed(torch, eager, e_out, e_launches, graphed, g_out,
         f"logits bit-equal, launches equal {g_launches}; 1 capture per step")
 
 
-def _logits_gate(torch, cfg, params, ecfg, prompts, eng, out, label):
+def _logits_gate(torch, cfg, params, ecfg, prompts, eng, out, label,
+                 limit=LOGIT_RL2, separate=False):
     """Hold ``eng``'s last-prefill logits to the one-shot prefill on the
-    same weights, at LOGIT_RL2, beside two planted faults."""
+    same weights, at ``limit``, beside two planted faults that must read
+    above it.  With ``separate`` the faults need not pass ``limit``;
+    instead every sound reading must lie below every planted fault's
+    reading of every request.  With no limit, each request's sound
+    reading must lie below both of its own planted faults' readings."""
     from repro_torch.kernels import ops as kops
     from repro_torch.models import model as M
     from repro_torch.runtime import serve_loop
@@ -1141,12 +1171,29 @@ def _logits_gate(torch, cfg, params, ecfg, prompts, eng, out, label):
     log(f"last-prefill logits ({label}), worst relative L2: sound "
         f"{worst['sound']:.5f}"
         f", planted faults short {worst['short']:.5f} and dropped "
-        f"{worst['dropped']:.5f}; limit {LOGIT_RL2}")
-    assert worst["sound"] <= LOGIT_RL2, \
-        f"engine logits off by {worst['sound']} > {LOGIT_RL2}"
+        f"{worst['dropped']:.5f}; limit {limit}")
+    if limit is None:
+        for i, sound in enumerate(read["sound"]):
+            least = min(read["short"][i], read["dropped"][i])
+            assert sound < least, \
+                f"request {i}: sound reading {sound} not below both " \
+                f"planted faults' ({least})"
+        return read
+    assert worst["sound"] <= limit, \
+        f"engine logits off by {worst['sound']} > {limit}"
+    if separate:
+        least = min(min(read["short"]), min(read["dropped"]))
+        log(f"separation ({label}): least planted-fault reading "
+            f"{least:.5f} over worst sound reading {worst['sound']:.5f} = "
+            f"{least / worst['sound']:.2f}")
+        assert worst["sound"] < least, \
+            f"worst sound reading {worst['sound']} not below every " \
+            f"planted fault's ({least})"
+        return read
     for fault in ("short", "dropped"):
-        assert worst[fault] > LOGIT_RL2, \
+        assert worst[fault] > limit, \
             f"planted fault {fault} ({worst[fault]}) passes the gate"
+    return read
 
 
 def phase_engine(torch, card):
@@ -1279,23 +1326,29 @@ def _profile(torch, eng, prompts, rid0, label):
     return out
 
 
-def _timed_turns(torch, engines, prompts, want, card):
+def _timed_turns(torch, engines, prompts, want, card, wants=None):
     """Decode tok/s of each engine (decode tokens over its run's wall
     time, prefill included) on the chip_smoke traffic, the engines in
     turns (in order, then in reverse), each run's streams held to
-    ``want``."""
+    ``want`` (or to ``wants[label]`` where given).  An engine given as a
+    function is built anew, and warmed up, for each of its turns: under
+    MoE capacity a stream depends on the slot each request gets, and so
+    on what the engine served before."""
     import statistics
     got = {label: [] for label in engines}
     order = list(engines) + list(reversed(engines))
     for turn, label in enumerate(order):
         eng = engines[label]
+        if callable(eng):
+            eng = eng()
         clock, rid0 = eng.sched.clock, 1000 * (turn + 1)
         d0 = eng.sched.stats.decode_tokens
         for i, p in enumerate(prompts):
             eng.submit(p, NEW_TOKENS, rid=rid0 + i, arrival=clock + 2 * i)
         out = eng.run()
+        held = (wants or {}).get(label, want)
         for i in range(len(prompts)):
-            assert out[rid0 + i].tokens == want[i], (label, i)
+            assert out[rid0 + i].tokens == held[i], (label, i)
         got[label].append((eng.sched.stats.decode_tokens - d0)
                           / eng.stats.wall_s)
     med = {label: statistics.median(v) for label, v in got.items()}
@@ -1616,17 +1669,27 @@ def phase_float_gate(torch, card):
     identical; where one diverges, the first divergent position may pass
     only as a tie within rounding: the one-shot logits' top-2 margin there
     below max|engine - one-shot| of the logits there."""
-    from repro_torch.models import model as M
-    from repro_torch.runtime import serve_loop
-
     log(f"== float gate: h2o-danube-3-4b full width cut to {FLOAT_LAYERS} of "
         f"24 layers, 6:8 compressed, recipe none, fp32 activations and KV "
         "pages, fused attention, graphed; streams vs one-shot generate ==")
     cfg, params, prompts, ecfg = _engine_setup(
         torch, "compressed", recipe="none", dtype="float32",
         num_layers=FLOAT_LAYERS)
+    return _float_gate(torch, card, cfg, params, prompts, ecfg)
+
+
+def _divergences(torch, card, cfg, params, prompts, ecfg, new_tokens,
+                 label):
+    """A graphed engine's streams against one-shot ``generate`` on the
+    same weights.  Returns ({rid: None for an identical stream, else
+    (first divergent position, one-shot top-2 margin there, max|engine -
+    one-shot| of the logits there)}, identical tokens, compared tokens),
+    and logs each request."""
+    from repro_torch.models import model as M
+    from repro_torch.runtime import serve_loop
+
     eng = serve_loop.ServeEngine(params, cfg, ecfg, device="cuda")
-    log(f"warmup graphed: {eng.warmup():.2f} s")
+    log(f"warmup graphed ({label}): {eng.warmup():.2f} s")
     # the logits each decode step sampled from, per request: the decode
     # step's static output row of each slot that decoded in it
     rows = {i: [] for i in range(len(prompts))}
@@ -1642,33 +1705,37 @@ def phase_float_gate(torch, card):
                              if not s.prefilling and not s.done]
 
     for i, p in enumerate(prompts):
-        eng.submit(p, NEW_TOKENS, rid=i, arrival=2 * i)
+        eng.submit(p, new_tokens, rid=i, arrival=2 * i)
     out = eng.run(on_step=on_step)
-    assert all(c.ok and len(c.tokens) == NEW_TOKENS for c in out.values())
+    assert all(c.ok and len(c.tokens) == new_tokens for c in out.values())
     eng.kv.check()
-    log(f"run float: {eng.stats.decode_steps} decode steps in "
+    log(f"run {label}: {eng.stats.decode_steps} decode steps in "
         f"{eng.stats.wall_s:.3f} s; {eng.stats.decode_tok_s:.2f} tok/s on "
         f"{card}")
-    same, total, ties = 0, 0, 0
+    div, same, total = {}, 0, 0
     for i, p in enumerate(prompts):
         tok = torch.tensor([p], dtype=torch.int32, device="cuda")
-        want, _ = serve_loop.generate(params, cfg, tok, NEW_TOKENS)
+        want, _ = serve_loop.generate(params, cfg, tok, new_tokens)
         want = want[0].tolist()
         got = out[i].tokens
         engine_logits = [eng.first_logits[i]] + rows[i]
-        assert len(engine_logits) == NEW_TOKENS, len(engine_logits)
+        assert len(engine_logits) == new_tokens, len(engine_logits)
+        # the one-shot logits of the first token, then at the first
+        # divergent position, by the loop generate runs (its tokens held
+        # to generate's up to there)
+        logits, cache, kv_len = M.prefill(params, cfg, tok,
+                                          max_len=len(p) + new_tokens)
+        d0 = (engine_logits[0].float() - logits[0].float()).abs().max()
         first = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
                      None)
         if first is None:
-            same += NEW_TOKENS
-            total += NEW_TOKENS
-            log(f"request {i}: prompt {len(p)}; {NEW_TOKENS}/{NEW_TOKENS} "
-                "tokens identical to one-shot")
+            div[i] = None
+            same += new_tokens
+            total += new_tokens
+            log(f"request {i}: prompt {len(p)}; {new_tokens}/{new_tokens} "
+                f"tokens identical to one-shot; first-token max|engine - "
+                f"one-shot| {d0.item():.3e}")
             continue
-        # the one-shot logits at the first divergent position, by the loop
-        # generate runs (its tokens held to generate's up to there)
-        logits, cache, kv_len = M.prefill(params, cfg, tok,
-                                          max_len=len(p) + NEW_TOKENS)
         for j in range(first):
             t = torch.argmax(logits, -1).to(torch.int32)
             assert int(t[0]) == want[j]
@@ -1678,19 +1745,486 @@ def phase_float_gate(torch, card):
         top2 = torch.topk(ref, 2).values
         margin = (top2[0] - top2[1]).item()
         diff = (engine_logits[first].float() - ref).abs().max().item()
+        div[i] = (first, margin, diff)
         same += first
         total += first + 1
-        ties += 1
         log(f"request {i}: prompt {len(p)}; first divergence at position "
             f"{first} (engine {got[first]}, one-shot {want[first]}): "
             f"one-shot top-2 margin {margin:.3e}, max|engine - one-shot| "
-            f"{diff:.3e}")
+            f"{diff:.3e}; first-token max|engine - one-shot| {d0.item():.3e}")
+    return div, same, total
+
+
+def _float_gate(torch, card, cfg, params, prompts, ecfg):
+    """The float gate's run and check on a packed float model: a graphed
+    engine's streams against one-shot ``generate``, a first divergence
+    passing only as a tie within rounding."""
+    div, same, total = _divergences(torch, card, cfg, params, prompts, ecfg,
+                                    NEW_TOKENS, "float")
+    ties = 0
+    for i, d in div.items():
+        if d is None:
+            continue
+        first, margin, diff = d
+        ties += 1
         assert margin < diff, \
             f"request {i}: divergence at {first} is no tie (margin {margin}" \
             f" >= difference {diff})"
-    log(f"float gate: {same}/{total} compared tokens identical to one-shot "
-        f"generate, {ties} divergences, each a tie within rounding")
+    log(f"float gate ({cfg.name}): {same}/{total} compared tokens identical "
+        f"to one-shot generate, {ties} divergences, each a tie within "
+        "rounding")
     return {"same": same, "total": total, "ties": ties}
+
+
+# launch/serve_batched.py's granite engine demo: its default traffic and
+# a smaller one
+LAUNCHER_ARGV = (["--arch", "granite-moe-3b-a800m", "--engine"],
+                 ["--arch", "granite-moe-3b-a800m", "--engine", "--requests",
+                  "4", "--batch", "2", "--prompt-len", "24", "--new-tokens",
+                  "8"])
+
+
+def _launcher_kv_check(torch, card):
+    """``launch/serve_batched.py``'s granite engine demo (fp32
+    activations) on its own setup, for each of LAUNCHER_ARGV, run with its
+    bf16 KV pages and again with fp32 pages.  The one-shot prefill
+    attends over the prompt's K/V in the activation dtype, the engine
+    over K/V read back from its pages (as in JAX).  Each divergence from
+    one-shot is logged with the one-shot top-2 margin there and must be a
+    tie within rounding (the margin below max|engine - one-shot| there,
+    as the float gate holds it); with fp32 pages every stream must equal
+    one-shot."""
+    import dataclasses
+    from repro_torch.launch import serve_batched as sb
+
+    res = {}
+    for argv in LAUNCHER_ARGV:
+        args = sb.parse_args(argv + ["--device", "cuda"])
+        base, params, _ = sb.demo_model(args.arch, "cuda")
+        for kv in ("bfloat16", "float32"):
+            b = dataclasses.replace(base, kv_cache_dtype=kv)
+            cfg, packed, prompts, ecfg = sb.engine_traffic(args, b, params)
+            label = f"serve_batched {' '.join(argv)}, {kv} KV pages"
+            div, same, total = _divergences(
+                torch, card, cfg, packed, prompts, ecfg, args.new_tokens,
+                label)
+            rids = sorted(i for i, d in div.items() if d is not None)
+            for i in rids:
+                first, margin, diff = div[i]
+                assert margin < diff, \
+                    f"{label}, request {i}: divergence at {first} is no " \
+                    f"tie (margin {margin} >= difference {diff})"
+            log(f"{label}: {same}/{total} compared tokens identical to "
+                f"one-shot, divergent requests {rids}, each a tie within "
+                "rounding")
+            res[(" ".join(argv[3:]) or "defaults", kv)] = rids
+            del packed
+            if kv == "float32":
+                assert not rids, \
+                    f"{label}: requests {rids} diverge from one-shot"
+    return res
+
+
+# ----------------------------------------------------------------- phase 8
+FAMILIES = ("granite-moe-3b-a800m", "mamba2-780m")
+# granite's one-shot prefill dispatches a T-token prompt as one MoE group
+# while T <= the group size (256), and asserts divisibility above it (as
+# JAX does), so its prompts stay within one group
+MOE_PLENS = [53, 117, 211, 250]
+# B1/B3 shapes (N, K) the two models add: granite wq/wo, wk/wv and
+# lm_head; mamba2 wx/wz, wB/wC, wdt, wo and lm_head
+FAMILY_SHAPES = [(1536, 1536), (512, 1536), (49155, 1536), (3072, 1536),
+                 (128, 1536), (48, 1536), (1536, 3072), (50280, 1536)]
+
+
+def _family_setup(torch, arch, recipe="int8", dtype=None,
+                  modes=("compressed", "slided")):
+    """``arch`` at its registered width and depth, 6:8, fused attention,
+    random weights from the seed-0 generator: every SSM ``wo`` is drawn
+    too (N(0, 1) * d_inner^-0.5; the init's zeros make the block the
+    identity).  One draw packed in each of ``modes``; the MoE expert
+    stacks are pruned once and shared by the packings.  bf16 activations
+    and KV pages as registered, or ``dtype`` for both.  Returns
+    ({mode: (cfg, params)}, prompts, ecfg)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.core.linear import SparsityConfig
+    from repro_torch.models import model as M
+    from repro_torch.runtime import serve_loop
+
+    base = registry.get(arch)
+    if dtype:
+        base = dataclasses.replace(base, dtype=dtype, kv_cache_dtype=dtype)
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    raw = M.draw_ssm_wo(M.init(base, gen), base, gen)
+    packs = {}
+    for mode in modes:
+        cfg = dataclasses.replace(base, sparsity=SparsityConfig(
+            pattern=(6, 8), mode=mode, recipe=recipe, fused_attention=True))
+        params = serve_loop.pack_params(raw, cfg)
+        for unit, packed in zip(raw["units"], params["units"]):
+            for key, lp in packed.items():
+                if "router" in lp.get("ffn", {}):
+                    unit[key]["ffn"] = lp["ffn"]  # pruned: reused as is
+        packs[mode] = (cfg, params)
+    del raw
+    torch.cuda.synchronize()
+
+    def nbytes(node):
+        if isinstance(node, dict):
+            return sum(nbytes(v) for v in node.values())
+        if isinstance(node, list):
+            return sum(nbytes(v) for v in node)
+        return node.numel() * node.element_size()
+
+    sizes = ", ".join(f"{m} {nbytes(p) / 1e9:.2f} GB" for m, (_, p) in
+                      packs.items())
+    log(f"init + pack {arch}: {time.time() - t0:.1f} s; {base.num_layers} "
+        f"layers, {recipe}, packed weights {sizes} (MoE stacks shared); "
+        f"device memory {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    plens = MOE_PLENS if base.uses_moe else PLENS
+    prompts = [torch.randint(0, base.vocab_size, (n,), generator=gen,
+                             device="cuda").tolist() for n in plens]
+    ecfg = serve_loop.EngineConfig(max_batch=4, page_size=16, num_pages=128,
+                                   max_seq_len=max(plens) + NEW_TOKENS,
+                                   prefill_chunk=PREFILL_CHUNK)
+    return packs, prompts, ecfg
+
+
+def _interleaved(trace):
+    """The rids whose prefill spans several chunks with a decode step
+    between the first and the last (scheduler trace)."""
+    chunks = {}
+    for i, t in enumerate(trace):
+        if t.startswith("prefill r"):
+            chunks.setdefault(t.split()[1].split("[")[0], []).append(i)
+    return [rid for rid, ix in chunks.items() if len(ix) > 1 and any(
+        trace[j].startswith("decode") for j in range(ix[0] + 1, ix[-1]))]
+
+
+def _family_kernel_shapes(torch):
+    """The kernel shapes the two models add, against the plain versions:
+    B2 at granite's head_dim 64 with 3 query heads per KV head (window
+    off; decode at B = 4 and a 128-lane prefill chunk; fp32 queries within
+    B2_TOL, bf16 queries within 2^-7 of max|plain| and launched twice
+    bit-identical); B1 and B3 (int8, bit-equal) at FAMILY_SHAPES x R in
+    {1, 4, prefill_chunk}."""
+    from repro_torch.core import linear as sl
+    from repro_torch.core.compressed import CompressedSlided
+    from repro_torch.kernels import fused_slide_matmul as fsm, ref, \
+        paged_attention as pa, slide_matmul as smm
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    h, kvh, hd, ps, num_pages = 24, 8, 64, 16, 320
+    err = {"B1": 0.0, "B2": 0.0, "B3": 0.0}
+    pool = {n: torch.randn((num_pages, ps, kvh, hd), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+            for n in ("k", "v")}
+    for name, kv_len, lanes in (("decode", [1000, 517, 77, 260], 1),
+                                ("prefill", [257], PREFILL_CHUNK)):
+        b = len(kv_len)
+        maxp = -(-(max(kv_len) + lanes - 1) // ps) + 2
+        splits = pa.splits_for(b, kvh, maxp, ps, lanes, h // kvh)
+        perm = torch.randperm(num_pages - 1, generator=gen,
+                              device="cuda") + 1
+        table = torch.zeros((b, maxp), dtype=torch.int32, device="cuda")
+        used = 0
+        for i, n_tok in enumerate(kv_len):
+            n = -(-(n_tok + lanes - 1) // ps)
+            table[i, :n] = perm[used:used + n].to(torch.int32)
+            used += n
+        kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        q = torch.randn((b, lanes, h, hd), generator=gen, device="cuda")
+        qb = q.to(torch.bfloat16)
+        exact = name != "prefill"
+        y = pa.paged_attention_cuda(q, pool, table, kvl, None)
+        y_ref = ref.flash_paged_split(q, pool, table, kvl, None, splits)
+        yb = pa.paged_attention_cuda(qb, pool, table, kvl, None, exact)
+        yb2 = pa.paged_attention_cuda(qb, pool, table, kvl, None, exact)
+        yb_ref = ref.flash_paged_split(qb, pool, table, kvl, None, splits)
+        e32 = (y - y_ref).abs().max().item()
+        e16 = (yb.float() - yb_ref.float()).abs().max().item()
+        assert e32 <= B2_TOL, f"B2 hd64 {name} fp32: {e32}"
+        assert e16 <= 2 ** -7 * yb_ref.float().abs().max().item(), \
+            f"B2 hd64 {name} bf16: {e16}"
+        assert torch.equal(yb, yb2), f"B2 hd64 {name}: two launches differ"
+        err["B2"] = max(err["B2"], e32, e16)
+        log(f"B2 hd=64 H=24 KVH=8 {name} (S={splits}): fp32 err {e32:.3g}, "
+            f"bf16 err {e16:.3g}, launched twice bit-identical")
+    del pool
+
+    cases = 0
+    for mode in ("compressed", "slided"):
+        cfg = sl.SparsityConfig(pattern=(6, 8), mode=mode, recipe="int8")
+        rec, dec = cfg.recipe, cfg.decomposition()
+        for m, k in FAMILY_SHAPES:
+            w = (torch.randn((m, k), generator=gen, device="cuda")
+                 * k ** -0.5).to(torch.bfloat16)
+            p = sl.prepare({"w": w}, cfg)
+            for r in (1, 4, PREFILL_CHUNK):
+                x = torch.randn((r, k), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                if mode == "compressed":
+                    c = CompressedSlided(p["values"], p["indices"], k, 6, 8,
+                                         2, 4)
+                    qx = rec.quantize_act(x)
+                    y = smm.compressed_matmul_cuda(
+                        qx.q, c.values, c.indices, qx.scale, p["s_w"],
+                        n_fam=4, out_dtype=torch.bfloat16)
+                    y_ref = ref.compressed_matmul_dequant(
+                        qx.q, qx.scale, c, p["s_w"], torch.bfloat16)
+                    name = "B1"
+                else:
+                    y = fsm.fused_slided_matmul_cuda(
+                        x, p["sp_values"], p["sp_meta"], p["s_w"], n_fam=4,
+                        out_dtype=torch.bfloat16)
+                    y_ref = ref.slided_matmul_sparse(
+                        x, p["sp_values"], p["sp_meta"], p["s_w"], dec, rec,
+                        torch.bfloat16)
+                    name = "B3"
+                e = (y.float() - y_ref.float()).abs().max().item()
+                assert torch.equal(y, y_ref), \
+                    f"{name} int8 {m}x{k} R={r}: not bit-equal ({e})"
+                err[name] = max(err[name], e)
+                cases += 1
+            del w, p
+    torch.cuda.empty_cache()
+    log(f"B1 and B3 int8 at the families' shapes {FAMILY_SHAPES} x R in "
+        f"(1, 4, {PREFILL_CHUNK}): {cases} cases bit-equal to plain")
+    return err
+
+
+def _family_overlapped(torch, arch, cfg, params, ecfg, prompts, sync_eng,
+                       sync_out, sync_launches):
+    """The overlapped loop on the same traffic.  Its fast path feeds an
+    inactive lane the previous step's id where the synchronous loop feeds
+    0; under MoE capacity that lane competes with the real tokens of its
+    step (as in JAX, whose loop does the same), and a request whose token
+    changed competes in every later decode step it shares.  So a stream
+    is held to the synchronous one only where the request never shared a
+    decode step with such a lane or with a request exposed to one.  The
+    scheduler trace and the launch counts do not depend on token values
+    and are held whole."""
+    import dataclasses
+    from repro_torch.runtime import serve_loop
+
+    eng = serve_loop.ServeEngine(
+        params, cfg, dataclasses.replace(ecfg, async_loop=True),
+        device="cuda")
+    log(f"warmup overlapped {arch}: {eng.warmup():.2f} s")
+    steps, fast, sync = [], eng._threaded_decode, eng._decode_batch
+
+    def fast_step(la):
+        steps.append((len(la.seqs) < eng.ecfg.max_batch,
+                      {s.rid for s in la.seqs}))
+        return fast(la)
+
+    def sync_step(decision):
+        steps.append((False, {s.rid for s in decision.seqs}))
+        return sync(decision)
+
+    eng._threaded_decode, eng._decode_batch = fast_step, sync_step
+    try:
+        out, launches = _engine_run(eng, prompts, f"{arch} overlapped",
+                                    split=False)
+    finally:
+        del eng._threaded_decode, eng._decode_batch
+    exposed = set()
+    if cfg.uses_moe:
+        for garbage, rids in steps:
+            if garbage or rids & exposed:
+                exposed |= rids
+    mixed = sum(g for g, _ in steps)
+    held = [i for i in out if i not in exposed]
+    for i in held:
+        assert out[i].tokens == sync_out[i].tokens, \
+            f"{arch} request {i}: overlapped stream differs from sync"
+    differ = sum(out[i].tokens != sync_out[i].tokens for i in exposed)
+    assert eng.sched.trace == sync_eng.sched.trace, \
+        f"{arch}: overlapped scheduler trace differs from the sync run"
+    assert eng.stats.lookahead_steps > 0, f"{arch}: the fast path never fired"
+    assert launches == sync_launches, (launches, sync_launches)
+    assert eng.captures == ONE_EACH, eng.captures
+    log(f"overlapped {arch}: {eng.stats.lookahead_steps} fast-path steps, "
+        f"{mixed} of them with an inactive lane; streams held equal to sync "
+        f"for {len(held)} of {len(out)} requests (exposed to lane garbage "
+        f"under MoE capacity: {sorted(exposed)}, {differ} of them differ); "
+        "trace and launches equal")
+    return eng, {i: c.tokens for i, c in out.items()}, mixed
+
+
+def _moe_logits(torch, arch, cfg, params, ecfg, prompts, eng, out):
+    """The MoE model's last-prefill logits gates.  Returns the worst
+    readings at the registered capacity factor and at E / k."""
+    import dataclasses
+    from repro_torch.runtime import serve_loop
+
+    # at the registered capacity a 128-token chunk (with its padding
+    # rows) and a whole prompt drop different slots, so a sound reading
+    # can exceed another request's planted fault: each request is held to
+    # its own two faults
+    read = _logits_gate(torch, cfg, params, ecfg, prompts, eng, out,
+                        f"{arch} int8", limit=None)
+    # at capacity factor E / k, cap = Tg and no expert takes more than Tg
+    # tokens of a group, so neither grouping drops a slot: phase 4's limit
+    # on every sound reading, and every sound reading below every planted
+    # fault's (granite's "dropped" fault reads below that limit, so the
+    # limit alone cannot see it)
+    cf = cfg.moe_num_experts / cfg.moe_top_k
+    nd_cfg = dataclasses.replace(cfg, moe_capacity_factor=cf)
+    nd = serve_loop.ServeEngine(params, nd_cfg, ecfg, device="cuda")
+    nd.warmup()
+    nd_out, _ = _engine_run(nd, prompts, f"{arch} compressed graphed, "
+                            f"capacity factor {cf} (no drops)")
+    nd_read = _logits_gate(torch, nd_cfg, params, ecfg, prompts, nd, nd_out,
+                           f"{arch} int8, no drops", separate=True)
+    return ({k: max(v) for k, v in read.items()},
+            {k: max(v) for k, v in nd_read.items()})
+
+
+def _family_run(torch, card, arch):
+    """One model of phase 8: eager and graphed engines of both packings,
+    held to each other; for MoE the logits gate, for SSM the interleaved
+    schedule; the overlapped loop; a profile of graphed decode steps; and
+    eager, graphed and overlapped decode tok/s in turns (slided, a fresh
+    engine each turn)."""
+    import dataclasses
+    from repro_torch.runtime import serve_loop
+
+    packs, prompts, ecfg = _family_setup(torch, arch)
+    res = {"launches": {}}
+    engines = {}
+    for mode, (cfg, params) in packs.items():
+        eager, eng = _engine_pair(torch, cfg, params, ecfg)
+        e_out, e_launches = _engine_run(eager, prompts, f"{arch} {mode} eager")
+        out, launches = _engine_run(eng, prompts, f"{arch} {mode} graphed")
+        _hold_graphed(torch, eager, e_out, e_launches, eng, out, launches,
+                      f"{arch} {mode}")
+        mine, other = ("compressed_matmul", "fused_slided_matmul")
+        if mode == "slided":
+            mine, other = other, mine
+        assert launches[mine] > 0 and launches[other] == 0, launches
+        assert (launches["paged_attention"] > 0) == \
+            ("attn" in cfg.unit_pattern), launches
+        res["launches"][mode] = launches
+        engines[mode] = (eager, eng, out, launches)
+    c_out, s_out = engines["compressed"][2], engines["slided"][2]
+    for i, c in s_out.items():
+        assert c.tokens == c_out[i].tokens, \
+            f"{arch} request {i}: slided stream differs from compressed"
+        got = engines["slided"][1].first_logits[i]
+        want = engines["compressed"][1].first_logits[i]
+        assert torch.equal(got, want), \
+            f"{arch} request {i}: slided first logits differ from compressed"
+    log(f"{arch} slided == compressed: {len(s_out)} streams and first-token "
+        "logits bit-equal")
+
+    cfg, params = packs["compressed"]
+    eng = engines["compressed"][1]
+    res["nodes"] = _graph_nodes(torch, eng)
+    log(f"CUDA graph nodes per step ({arch}, compressed): "
+        f"{res['nodes'] or 'not measured'}")
+    if cfg.uses_moe:
+        res["logits"], res["logits_no_drop"] = _moe_logits(
+            torch, arch, cfg, params, ecfg, prompts, eng, c_out)
+    if cfg.uses_ssm:
+        inter = _interleaved(eng.sched.trace)
+        assert inter, f"{arch}: no decode step between two prefill chunks " \
+            f"of one request: {eng.sched.trace}"
+        log(f"{arch}: a decode step ran between prefill chunks of "
+            f"{', '.join(inter)}, whose SSM state survived it (streams "
+            "above)")
+    del engines["compressed"], eng
+    torch.cuda.empty_cache()
+
+    cfg, params = packs["slided"]
+    eager, eng, out, launches = engines.pop("slided")
+    overlapped, a_out, res["mixed_fast_steps"] = _family_overlapped(
+        torch, arch, cfg, params, ecfg, prompts, eng, out, launches)
+    res["profile"] = _profile(torch, eng, prompts, 100, f"{arch} graphed")
+    del eager, eng, overlapped
+    torch.cuda.empty_cache()
+
+    def fresh(async_loop=False, **kw):
+        def make():
+            e = serve_loop.ServeEngine(
+                params, cfg, dataclasses.replace(ecfg, async_loop=async_loop),
+                device="cuda", **kw)
+            e.warmup()
+            return e
+        return make
+
+    want = {i: c.tokens for i, c in out.items()}
+    res["tok_s"] = _timed_turns(
+        torch, {"eager": fresh(_eager=True), "graphed": fresh(),
+                "overlapped": fresh(async_loop=True)},
+        prompts, want, card, wants={"overlapped": a_out})
+    return res
+
+
+def phase_families(torch, card):
+    """Phase 8: granite-moe-3b-a800m (attention + MoE: B1 + B2
+    compressed, B3 + B2 slided) and mamba2-780m (SSD: B1 or B3 alone),
+    each at full width and depth, int8, bf16, fused attention, batch 4,
+    page 16, chunk 128, both packings from one seeded draw; the kernel
+    shapes the two add; and the fp32 float gate on mamba2."""
+    log("== families: the kernel shapes granite-moe-3b-a800m and "
+        "mamba2-780m add, against the plain versions ==")
+    out = {"err": _family_kernel_shapes(torch)}
+    for arch in FAMILIES:
+        log(f"== families: {arch}, full width and depth, 6:8 int8, bf16, "
+            "fused attention; compressed and slided, eager, graphed, "
+            "overlapped ==")
+        out[arch] = _family_run(torch, card, arch)
+        torch.cuda.empty_cache()
+    log("== families: float gate, mamba2-780m full width and depth, 6:8 "
+        "compressed, recipe none, fp32; streams vs one-shot generate ==")
+    packs, prompts, ecfg = _family_setup(torch, "mamba2-780m", recipe="none",
+                                         dtype="float32",
+                                         modes=("compressed",))
+    cfg, params = packs["compressed"]
+    out["float"] = _float_gate(torch, card, cfg, params, prompts, ecfg)
+    del packs, params
+    torch.cuda.empty_cache()
+    log("== families: serve_batched's granite-moe-3b-a800m engine demo "
+        "(fp32 activations) with bf16 and with fp32 KV pages; streams vs "
+        "one-shot generate ==")
+    out["launcher"] = _launcher_kv_check(torch, card)
+    return out
+
+
+def report_families(fam, card):
+    """Phase 8's figures, one line each, beside the card."""
+    for arch in FAMILIES:
+        r = fam[arch]
+        pr, tok = r["profile"], r["tok_s"]
+        log(f"{arch} decode tok/s (slided, in turns): eager "
+            f"{tok['eager']:.2f}, graphed {tok['graphed']:.2f}, graphed + "
+            f"overlapped {tok['overlapped']:.2f}; graphed decode step "
+            f"{pr['step_ms']:.3f} ms wall, {pr['device_ms']:.3f} ms device, "
+            f"host share {pr['host_share']:.3f}, device idle share "
+            f"{pr['idle_share']:.3f}; graph nodes {r['nodes']}; fast-path "
+            f"steps with an inactive lane {r['mixed_fast_steps']} ({card})")
+        for mode, n in r["launches"].items():
+            log(f"{arch} {mode} launches in the graphed run: "
+                f"compressed_matmul {n['compressed_matmul']}, "
+                f"paged_attention {n['paged_attention']}, "
+                f"fused_slided_matmul {n['fused_slided_matmul']}")
+        if "logits" in r:
+            log(f"{arch} last-prefill logits, worst relative L2: " + ", ".join(
+                f"{k} {v:.5f}" for k, v in r["logits"].items()))
+            log(f"{arch} last-prefill logits at no drops, worst relative "
+                "L2: " + ", ".join(f"{k} {v:.5f}" for k, v in
+                                   r["logits_no_drop"].items()))
+    log("serve_batched granite-moe-3b-a800m engine demo, requests "
+        "diverging from one-shot (each a tie within rounding): " + "; ".join(
+            f"{traffic}, {kv} KV pages {rids}"
+            for (traffic, kv), rids in fam["launcher"].items()) + f" ({card})")
+    f = fam["float"]
+    log(f"mamba2-780m float gate: {f['same']}/{f['total']} tokens identical, "
+        f"{f['ties']} ties; kernel errors at the families' shapes "
+        f"{fam['err']} ({card})")
 
 
 def main() -> int:
@@ -1780,6 +2314,8 @@ def main() -> int:
     del packs
     torch.cuda.empty_cache()
     phase_float_gate(torch, card)
+    torch.cuda.empty_cache()
+    families = phase_families(torch, card)
     prof, tok_s = slided["profile"], slided["tok_s"]
     for label, pr in prof.items():
         log(f"slided decode step, {label}: {pr['step_ms']:.3f} ms, host "
@@ -1797,6 +2333,7 @@ def main() -> int:
             f"{pre[True]:.4f}, hit rate {hit:.4f} ({card})")
     log(f"CUDA graph nodes per step: "
         f"{features['nodes'] or 'not measured'} ({card})")
+    report_families(families, card)
 
     def entry(name, source, replaces, n, err, st):
         return {"name": name, "route": "cuda",

@@ -10,6 +10,11 @@ with ``--engine``, the continuous-batching paged-KV engine:
 ``--inject-faults SEED`` (deterministic allocation and step faults with
 bounded retries) and ``--async`` (the overlapped loop).  ``--tp`` is
 accepted and refused with ``NotImplementedError`` (not ported yet).
+``--arch`` takes every decoder-only config: dense, MoE (granite-moe,
+mixtral), Mamba-2 (mamba2) and the jamba hybrid; an SSM stack's engine
+refuses ``--prefix-cache`` and ``--speculate``, as JAX's does.  The
+weights are random from a seeded generator, an SSM block's ``wo`` drawn
+too (``init`` keeps JAX's zeros, which make the block the identity).
 """
 import argparse
 import dataclasses
@@ -73,7 +78,10 @@ def main(argv=None):
             recipe=args.precision, act_quant=args.act_quant,
             fused_attention=args.fused_attention))
     gen = torch.Generator(device=device).manual_seed(0)
-    params = serve_loop.pack_params(M.init(cfg, gen), cfg)
+    # an SSM block's wo is drawn too: init's zeros make the block the
+    # identity
+    params = serve_loop.pack_params(
+        M.draw_ssm_wo(M.init(cfg, gen), cfg, gen), cfg)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device, dtype=torch.int32)
 

@@ -18,6 +18,9 @@ to reuse; ``--speculate K`` verifies drafts of ``--draft`` in one
 ``--cancel-frac F`` cancels a seeded share of the requests mid-flight;
 ``--async`` runs the overlapped loop.  Runs on CUDA unless ``--device``
 says otherwise; weights come from a seeded ``torch.Generator``.
+``--arch`` picks the family (MoE and SSM stacks included), widened as
+the JAX example widens it; an SSM block's ``wo`` is drawn too (``init``
+keeps JAX's zeros, which make the block the identity).
 """
 import argparse
 import dataclasses
@@ -33,9 +36,23 @@ from repro_torch.models import model as M
 from repro_torch.runtime import faults as fl, serve_loop
 
 
-def engine_demo(args, base, params, device):
-    """Continuous-batching traffic over the packed pipeline, every stream
-    held to the one-shot reference on the same packed weights."""
+def demo_model(arch, device):
+    """``arch``'s smoke config widened as the JAX example widens it, and
+    random weights from the seed-0 generator (returned too, for what the
+    demo draws next)."""
+    base = registry.smoke_config(arch)
+    base = dataclasses.replace(base, d_model=256, num_heads=8, num_kv_heads=4,
+                               head_dim=32, d_ff=512, vocab_size=4096,
+                               num_layers=len(base.unit_pattern) * 2)
+    gen = torch.Generator(device=device).manual_seed(0)
+    # an SSM block's wo is drawn too: init's zeros make the block the
+    # identity
+    return base, M.draw_ssm_wo(M.init(base, gen), base, gen), gen
+
+
+def engine_traffic(args, base, params):
+    """The engine demo's packed model and traffic: (cfg, packed params,
+    prompts, engine config)."""
     z, l = args.pattern
     if args.shared_prefix >= args.prompt_len:
         raise SystemExit(f"--shared-prefix {args.shared_prefix} must be < "
@@ -54,19 +71,10 @@ def engine_demo(args, base, params, device):
     prompts = [shared + rng.integers(0, base.vocab_size,
                                      size=int(rng.integers(lo, hi))).tolist()
                for _ in range(args.requests)]
-
-    print(f"=== SlideSparse {z}:{l} continuous-batching engine "
-          f"({args.requests} staggered requests, device={device}, "
-          f"policy={args.policy}, prefix_cache={args.prefix_cache}, "
-          f"attention={'fused' if args.fused_attention else 'gather'}) ===")
     plan = None
     if args.inject_faults is not None:
         plan = fl.FaultPlan(seed=args.inject_faults, alloc_fail_rate=0.08,
                             step_error_rate=0.04)
-        print(f"fault injection armed: seed={plan.seed} "
-              f"alloc_fail_rate={plan.alloc_fail_rate} "
-              f"step_error_rate={plan.step_error_rate} "
-              f"cancel_frac={args.cancel_frac} watchdog={args.watchdog}")
     ecfg = serve_loop.EngineConfig(
         max_batch=min(args.batch, args.requests), page_size=8,
         num_pages=max(16, args.requests *
@@ -77,6 +85,24 @@ def engine_demo(args, base, params, device):
         watchdog=args.watchdog, faults=plan,
         speculate=args.speculate, draft_source=args.draft,
         async_loop=args.async_loop)
+    return cfg, packed, prompts, ecfg
+
+
+def engine_demo(args, base, params, device):
+    """Continuous-batching traffic over the packed pipeline, every stream
+    held to the one-shot reference on the same packed weights."""
+    cfg, packed, prompts, ecfg = engine_traffic(args, base, params)
+    z, l = args.pattern
+    plan = ecfg.faults
+    print(f"=== SlideSparse {z}:{l} continuous-batching engine "
+          f"({args.requests} staggered requests, device={device}, "
+          f"policy={args.policy}, prefix_cache={args.prefix_cache}, "
+          f"attention={'fused' if args.fused_attention else 'gather'}) ===")
+    if plan is not None:
+        print(f"fault injection armed: seed={plan.seed} "
+              f"alloc_fail_rate={plan.alloc_fail_rate} "
+              f"step_error_rate={plan.step_error_rate} "
+              f"cancel_frac={args.cancel_frac} watchdog={args.watchdog}")
     eng = serve_loop.ServeEngine(packed, cfg, ecfg, device=device)
     eng.warmup()
     for i, p in enumerate(prompts):
@@ -153,7 +179,7 @@ def engine_demo(args, base, params, device):
           "(OK exact; non-OK prefix)")
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="h2o-danube-3-4b")
     ap.add_argument("--pattern", nargs=2, type=int, default=(6, 8))
@@ -200,15 +226,13 @@ def main(argv=None):
                          "attention kernel instead of gather-then-SDPA")
     ap.add_argument("--async", dest="async_loop", action="store_true",
                     help="engine mode: overlapped host/device loop")
-    args = ap.parse_args(argv)
-    device = resolve_device(args.device)
+    return ap.parse_args(argv)
 
-    base = registry.smoke_config(args.arch)
-    base = dataclasses.replace(base, d_model=256, num_heads=8, num_kv_heads=4,
-                               head_dim=32, d_ff=512, vocab_size=4096,
-                               num_layers=len(base.unit_pattern) * 2)
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = M.init(base, gen)
+
+def main(argv=None):
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    base, params, gen = demo_model(args.arch, device)
     if args.engine:
         return engine_demo(args, base, params, device)
     tokens = torch.randint(0, base.vocab_size, (args.batch, args.prompt_len),

@@ -1,7 +1,8 @@
 """Model API over the architecture families the port serves so far.
 
-Port of ``repro.models.model``: decoder-only stacks dispatch to
-``transformer``; encoder-decoder models are not ported yet (ROADMAP A.3).
+Port of ``repro.models.model``: decoder-only stacks (attention, MoE, SSM
+and hybrid units) dispatch to ``transformer``; encoder-decoder models are
+not ported yet (ROADMAP A.3).
 """
 from __future__ import annotations
 
@@ -24,6 +25,10 @@ def init(cfg: ModelConfig, gen: torch.Generator) -> dict[str, Any]:
     return transformer.init(cfg, gen)
 
 
+def draw_ssm_wo(params, cfg: ModelConfig, gen: torch.Generator):
+    return transformer.draw_ssm_wo(params, cfg, gen)
+
+
 def prefill(params, cfg: ModelConfig, tokens, max_len: int | None = None):
     _decoder_only(cfg)
     return transformer.prefill(params, cfg, tokens, max_len)
@@ -41,12 +46,13 @@ def make_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 
 
 def paged_prefill_chunk(params, cfg: ModelConfig, tokens, cache, page_table,
-                        start, real_len, page_size: int):
+                        start, real_len, slot, reset, page_size: int):
     """One prompt chunk through the paged cache (decoder-only stacks);
-    ``start``/``real_len`` are int32 device scalars."""
+    ``start``/``real_len``/``slot`` are int32 and ``reset`` a bool device
+    scalar (``reset`` zeroes the slot's SSM state on a first chunk)."""
     return transformer.paged_prefill_chunk(params, cfg, tokens, cache,
                                            page_table, start, real_len,
-                                           page_size)
+                                           slot, reset, page_size)
 
 
 def paged_decode_step(params, cfg: ModelConfig, token, cache, page_table,
@@ -57,11 +63,10 @@ def paged_decode_step(params, cfg: ModelConfig, token, cache, page_table,
                                          page_size)
 
 
-
 def paged_verify_step(params, cfg: ModelConfig, tokens, cache, page_table,
                       kv_len, real_len, active, page_size: int):
     """Speculative verify step: score [B, K+1] draft lanes per slot in one
-    pass (attention-only decoder stacks)."""
+    pass (decoder stacks without SSM layers)."""
     return transformer.paged_verify_step(params, cfg, tokens, cache,
                                          page_table, kv_len, real_len,
                                          active, page_size)

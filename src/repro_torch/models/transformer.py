@@ -1,11 +1,17 @@
-"""Decoder-only LM stack: dense attention / sliding-window units (port).
+"""Decoder-only LM stack: dense / SWA / MoE / SSM / hybrid units (port).
 
-Port of ``repro.models.transformer`` for the stacks this slice serves:
-``attn``/``swa`` units with a dense SwiGLU FFN.  The JAX package scans a
-stack of ``[U, ...]`` unit parameters; the port keeps ``params['units']``
-as a list of U unit dicts (same inner keys, ``layer_i``) and loops over it
-in Python.  SSM and MoE units raise (ROADMAP A.3).  Every projection
+Port of ``repro.models.transformer``.  The JAX package scans a stack of
+``[U, ...]`` unit parameters; the port keeps ``params['units']`` as a
+list of U unit dicts (same inner keys, ``layer_i``) and loops over it in
+Python.  A layer's mixer is attention (``attn``/``swa``) or the Mamba-2
+SSD block (``ssm``), its FFN a dense SwiGLU or the MoE experts
+(``cfg.moe_pattern``), so the jamba hybrid and mixtral are these units
+under other patterns.  M-RoPE raises (ROADMAP A.3).  Every projection
 routes through ``core.linear.apply`` on ``cfg.sparsity``.
+
+The paged cache holds, per attention layer, a page pool shared by every
+sequence and, per SSM layer, O(1) recurrent state for each of the
+engine's ``max_batch`` slots; both are updated in place.
 """
 from __future__ import annotations
 
@@ -16,15 +22,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import linear as sl
-from . import attention, layers
+from . import attention, layers, moe, ssm
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if any(k not in ("attn", "swa") for k in cfg.unit_pattern) or cfg.uses_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: unit pattern {cfg.unit_pattern} / MoE "
-            f"{cfg.moe_pattern} is not ported yet — the port serves attn/swa "
-            "units with a dense SwiGLU FFN (ROADMAP A.3)")
     if cfg.m_rope:
         raise NotImplementedError(f"{cfg.name}: M-RoPE not ported yet "
                                   "(ROADMAP A.3)")
@@ -38,32 +39,52 @@ def attn_spec(cfg: ModelConfig, kind: str) -> attention.AttnSpec:
         sliding_window=cfg.sliding_window if kind == "swa" else None)
 
 
+def ssm_spec(cfg: ModelConfig) -> ssm.SSMSpec:
+    return ssm.SSMSpec(d_model=cfg.d_model, d_state=cfg.ssm_state,
+                       d_conv=cfg.ssm_conv, expand=cfg.ssm_expand,
+                       head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk)
+
+
+def moe_spec(cfg: ModelConfig) -> moe.MoESpec:
+    return moe.MoESpec(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                       num_experts=cfg.moe_num_experts, top_k=cfg.moe_top_k,
+                       capacity_factor=cfg.moe_capacity_factor,
+                       expert_padding=cfg.moe_expert_padding)
+
+
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
 def _layers(cfg: ModelConfig):
-    """(unit index, layer key, kind) in execution order."""
+    """(unit index, layer key, kind, is_moe) in execution order."""
     for u in range(cfg.num_units):
-        for i, kind in enumerate(cfg.unit_pattern):
-            yield u, f"layer_{i}", kind
+        for i, (kind, is_moe) in enumerate(zip(cfg.unit_pattern,
+                                               cfg.moe_pattern)):
+            yield u, f"layer_{i}", kind, is_moe
 
 
 # ------------------------------------------------------------------ init
 def init(cfg: ModelConfig, gen: torch.Generator) -> dict[str, Any]:
     """Random weights from ``gen`` on its device, with the JAX
-    distributions: linears N(0, 1) * k^-0.5, embedding 0.02 * N(0, 1)."""
+    distributions: linears N(0, 1) * k^-0.5, embedding 0.02 * N(0, 1),
+    the SSM block's and MoE experts' own (``ssm.init``, ``moe.init``)."""
     _check_supported(cfg)
     dt, dev = _dtype(cfg), gen.device
     units = []
     for _ in range(cfg.num_units):
         unit = {}
-        for i, kind in enumerate(cfg.unit_pattern):
+        for i, (kind, is_moe) in enumerate(zip(cfg.unit_pattern,
+                                               cfg.moe_pattern)):
             lp = {"pre_norm": layers.rmsnorm_init(cfg.d_model, dev),
-                  "mixer": attention.init(gen, attn_spec(cfg, kind), dt)}
+                  "mixer": (ssm.init(gen, ssm_spec(cfg), dt) if kind == "ssm"
+                            else attention.init(gen, attn_spec(cfg, kind),
+                                                dt))}
             if cfg.d_ff > 0:
                 lp["ffn_norm"] = layers.rmsnorm_init(cfg.d_model, dev)
-                lp["ffn"] = layers.swiglu_init(gen, cfg.d_model, cfg.d_ff, dt)
+                lp["ffn"] = (moe.init(gen, moe_spec(cfg), dt) if is_moe
+                             else layers.swiglu_init(gen, cfg.d_model,
+                                                     cfg.d_ff, dt))
             unit[f"layer_{i}"] = lp
         units.append(unit)
     return {"embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
@@ -72,10 +93,26 @@ def init(cfg: ModelConfig, gen: torch.Generator) -> dict[str, Any]:
             "lm_head": sl.init(gen, cfg.d_model, cfg.vocab_size, dt)}
 
 
-def _ffn(lp, cfg: ModelConfig, xx):
+def draw_ssm_wo(params, cfg: ModelConfig, gen: torch.Generator):
+    """Draw every SSM block's ``wo`` from N(0, 1) * d_inner^-0.5 with
+    ``gen``, in place, and return ``params``.  ``init`` keeps JAX's zero
+    ``wo``, which makes a Mamba-2 block the identity; a random-weight
+    model meant to run its SSM path draws it here."""
+    scale = ssm_spec(cfg).d_inner ** -0.5
+    for u, key, kind, _ in _layers(cfg):
+        if kind == "ssm":
+            wo = params["units"][u][key]["mixer"]["wo"]
+            wo["w"] = (torch.randn(wo["w"].shape, generator=gen,
+                                   device=gen.device)
+                       * scale).to(wo["w"].dtype)
+    return params
+
+
+def _ffn(lp, cfg: ModelConfig, xx, is_moe: bool):
     if cfg.d_ff > 0:
         h = layers.rmsnorm(lp["ffn_norm"], xx, cfg.norm_eps)
-        xx = xx + layers.swiglu(lp["ffn"], h, cfg.sparsity)
+        xx = xx + (moe.apply(lp["ffn"], moe_spec(cfg), h, cfg.sparsity)
+                   if is_moe else layers.swiglu(lp["ffn"], h, cfg.sparsity))
     return xx
 
 
@@ -101,14 +138,17 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     sp = cfg.sparsity
     kv = getattr(torch, cfg.kv_cache_dtype)
     cache = [dict() for _ in range(cfg.num_units)]
-    for u, key, kind in _layers(cfg):
+    for u, key, kind, is_moe in _layers(cfg):
         lp = params["units"][u][key]
-        spec = attn_spec(cfg, kind)
         hh = layers.rmsnorm(lp["pre_norm"], xx, cfg.norm_eps)
-        y, _ = attention.apply(lp["mixer"], spec, hh, positions, sp)
-        cache[u][key] = attention.build_prefill_cache(
-            lp["mixer"], spec, hh, positions, sp, max_len, kv)
-        xx = _ffn(lp, cfg, xx + y)
+        if kind == "ssm":
+            y, cache[u][key] = ssm.apply(lp["mixer"], ssm_spec(cfg), hh, sp)
+        else:
+            spec = attn_spec(cfg, kind)
+            y, _ = attention.apply(lp["mixer"], spec, hh, positions, sp)
+            cache[u][key] = attention.build_prefill_cache(
+                lp["mixer"], spec, hh, positions, sp, max_len, kv)
+        xx = _ffn(lp, cfg, xx + y, is_moe)
     h = layers.rmsnorm(params["final_norm"], xx, cfg.norm_eps)
     logits = logits_fn(params, cfg, h[:, -1:, :])[:, 0]
     kv_len = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
@@ -117,17 +157,22 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 @torch.no_grad()
 def serve_step(params, cfg: ModelConfig, token, cache, kv_len):
-    """One-token decode over the dense cache (updated in place).
+    """One-token decode over the dense cache (updated in place; an SSM
+    layer's entry is replaced by its new state).
     token: [B] int; returns (logits [B, V], cache, kv_len + 1)."""
     xx = _embed(params, cfg, token[:, None])
     positions = kv_len[:, None]
-    for u, key, kind in _layers(cfg):
+    for u, key, kind, is_moe in _layers(cfg):
         lp = params["units"][u][key]
         hh = layers.rmsnorm(lp["pre_norm"], xx, cfg.norm_eps)
-        y, _ = attention.apply(lp["mixer"], attn_spec(cfg, kind), hh,
-                               positions, cfg.sparsity, cache=cache[u][key],
-                               kv_len=kv_len)
-        xx = _ffn(lp, cfg, xx + y)
+        if kind == "ssm":
+            y, cache[u][key] = ssm.apply(lp["mixer"], ssm_spec(cfg), hh,
+                                         cfg.sparsity, cache=cache[u][key])
+        else:
+            y, _ = attention.apply(lp["mixer"], attn_spec(cfg, kind), hh,
+                                   positions, cfg.sparsity,
+                                   cache=cache[u][key], kv_len=kv_len)
+        xx = _ffn(lp, cfg, xx + y, is_moe)
     h = layers.rmsnorm(params["final_norm"], xx, cfg.norm_eps)
     return logits_fn(params, cfg, h)[:, 0], cache, kv_len + 1
 
@@ -135,39 +180,68 @@ def serve_step(params, cfg: ModelConfig, token, cache, kv_len):
 # ------------------------------------------------------- paged inference
 def make_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      max_batch: int, device=None):
-    """Per unit, per attention layer, a physical page pool of
-    ``num_pages`` pages [page_size, KVH, hd] and the spare page that takes
-    dropped writes (``attention.make_paged_pool``); one logical page id
-    addresses the same slot in every layer."""
+    """Per unit: per attention layer a physical page pool of ``num_pages``
+    pages [page_size, KVH, hd] and the spare page that takes dropped
+    writes (``attention.make_paged_pool``), one logical page id
+    addressing the same slot in every layer; per SSM layer the recurrent
+    state of each of ``max_batch`` slots (``ssm.make_cache``)."""
     _check_supported(cfg)
     kv = getattr(torch, cfg.kv_cache_dtype)
     device = resolve_device(device)
-    return [{f"layer_{i}": attention.make_paged_pool(
-                attn_spec(cfg, kind), num_pages, page_size, kv, device)
+    def layer(kind):
+        if kind == "ssm":
+            return ssm.make_cache(ssm_spec(cfg), max_batch, device=device)
+        return attention.make_paged_pool(attn_spec(cfg, kind), num_pages,
+                                         page_size, kv, device)
+
+    return [{f"layer_{i}": layer(kind)
              for i, kind in enumerate(cfg.unit_pattern)}
             for _ in range(cfg.num_units)]
+
+
+def _ssm_chunk(lp, cfg, hh, state, slot, reset, real_len):
+    """An SSM layer of a prefill chunk: the slot's state (zeroed when
+    ``reset``) runs the chunked scan over the chunk's ``real_len`` real
+    tokens and is written back to the slot, all at device indices."""
+    idx = slot.to(torch.int64).reshape(1)
+    st = {k: torch.where(reset, torch.zeros((), dtype=a.dtype,
+                                            device=a.device),
+                         a.index_select(0, idx))
+          for k, a in state.items()}
+    vlen = real_len.to(torch.int32).reshape(1).expand(hh.shape[0])
+    y, new = ssm.apply(lp["mixer"], ssm_spec(cfg), hh, cfg.sparsity,
+                       cache=st, chunked=True, valid_len=vlen)
+    for k, a in state.items():
+        a.index_copy_(0, idx, new[k].to(a.dtype))
+    return y
 
 
 @torch.no_grad()
 def paged_prefill_chunk(params, cfg: ModelConfig, tokens, cache, page_table,
                         start: torch.Tensor, real_len: torch.Tensor,
+                        slot: torch.Tensor, reset: torch.Tensor,
                         page_size: int):
     """One prompt chunk of one sequence through the paged cache.
     tokens: [1, C] (rows >= real_len are right-padding); page_table:
-    [1, max_pages]; start/real_len: int32 device scalars (0-d), so the
-    step reads no value on the host.  Returns (logits [1, V] at the last
-    real token, cache)."""
+    [1, max_pages]; start/real_len/slot: int32 device scalars (0-d) and
+    reset a bool device scalar (True on a sequence's first chunk, zeroing
+    the slot's stale SSM state), so the step reads no value on the host.
+    Returns (logits [1, V] at the last real token, cache)."""
     b, c = tokens.shape
     xx = _embed(params, cfg, tokens)
     positions = start + torch.arange(c, dtype=torch.int32,
                                      device=tokens.device)[None].expand(b, c)
-    for u, key, kind in _layers(cfg):
+    for u, key, kind, is_moe in _layers(cfg):
         lp = params["units"][u][key]
         hh = layers.rmsnorm(lp["pre_norm"], xx, cfg.norm_eps)
-        y, _ = attention.paged_prefill_chunk(
-            lp["mixer"], attn_spec(cfg, kind), hh, positions, cfg.sparsity,
-            cache[u][key], page_table, start, real_len, page_size)
-        xx = _ffn(lp, cfg, xx + y)
+        if kind == "ssm":
+            y = _ssm_chunk(lp, cfg, hh, cache[u][key], slot, reset, real_len)
+        else:
+            y, _ = attention.paged_prefill_chunk(
+                lp["mixer"], attn_spec(cfg, kind), hh, positions,
+                cfg.sparsity, cache[u][key], page_table, start, real_len,
+                page_size)
+        xx = _ffn(lp, cfg, xx + y, is_moe)
     h = layers.rmsnorm(params["final_norm"], xx, cfg.norm_eps)
     last = torch.clamp(real_len - 1, 0, c - 1).long().reshape(1)
     return logits_fn(params, cfg, h.index_select(1, last))[:, 0], cache
@@ -177,16 +251,26 @@ def paged_prefill_chunk(params, cfg: ModelConfig, tokens, cache, page_table,
 def paged_decode_step(params, cfg: ModelConfig, token, cache, page_table,
                       kv_len, active, page_size: int):
     """One decode token for every slot.  token: [B]; kv_len: [B] context
-    lengths already written; active: [B] bool.
+    lengths already written; active: [B] bool.  An inactive slot (one
+    mid-chunked-prefill among them) keeps its SSM state bit for bit.
     Returns (logits [B, V], cache)."""
+    b = token.shape[0]
     xx = _embed(params, cfg, token[:, None])
-    for u, key, kind in _layers(cfg):
+    for u, key, kind, is_moe in _layers(cfg):
         lp = params["units"][u][key]
         hh = layers.rmsnorm(lp["pre_norm"], xx, cfg.norm_eps)
-        y, _ = attention.paged_decode_step(
-            lp["mixer"], attn_spec(cfg, kind), hh, cfg.sparsity,
-            cache[u][key], page_table, kv_len, active, page_size)
-        xx = _ffn(lp, cfg, xx + y)
+        if kind == "ssm":
+            state = cache[u][key]
+            y, new = ssm.apply(lp["mixer"], ssm_spec(cfg), hh, cfg.sparsity,
+                               cache=state)
+            for k, a in state.items():
+                on = active.reshape((b,) + (1,) * (a.dim() - 1))
+                a.copy_(torch.where(on, new[k].to(a.dtype), a))
+        else:
+            y, _ = attention.paged_decode_step(
+                lp["mixer"], attn_spec(cfg, kind), hh, cfg.sparsity,
+                cache[u][key], page_table, kv_len, active, page_size)
+        xx = _ffn(lp, cfg, xx + y, is_moe)
     h = layers.rmsnorm(params["final_norm"], xx, cfg.norm_eps)
     return logits_fn(params, cfg, h)[:, 0], cache
 
@@ -199,15 +283,21 @@ def paged_verify_step(params, cfg: ModelConfig, tokens, cache, page_table,
     right-padded; kv_len: [B] context lengths already written (the decode
     convention); real_len: [B] real lanes (1 + drafts); active: [B] bool.
     Returns (logits [B, C, V], cache): logits[:, i] predicts the token
-    after lane i, and the host accepts the longest agreeing prefix."""
+    after lane i, and the host accepts the longest agreeing prefix.  SSM
+    stacks raise: their state cannot roll back a rejected suffix (the
+    engine refuses them at construction)."""
+    if cfg.uses_ssm:
+        raise ValueError("speculative verify_step does not support SSM "
+                         "layers (recurrent state cannot roll back rejected "
+                         "drafts)")
     xx = _embed(params, cfg, tokens)
-    for u, key, kind in _layers(cfg):
+    for u, key, kind, is_moe in _layers(cfg):
         lp = params["units"][u][key]
         hh = layers.rmsnorm(lp["pre_norm"], xx, cfg.norm_eps)
         y, _ = attention.paged_verify_step(
             lp["mixer"], attn_spec(cfg, kind), hh, cfg.sparsity,
             cache[u][key], page_table, kv_len, real_len, active, page_size)
-        xx = _ffn(lp, cfg, xx + y)
+        xx = _ffn(lp, cfg, xx + y, is_moe)
     h = layers.rmsnorm(params["final_norm"], xx, cfg.norm_eps)
     return logits_fn(params, cfg, h), cache
 
@@ -217,7 +307,9 @@ def paged_copy_pages(cfg: ModelConfig, cache, src_ids, dst_ids):
     """Copy-on-write step: copy pages ``src_ids[i] -> dst_ids[i]`` in
     every attention layer's pool, in place (one logical page id addresses
     the same slot in every layer, so one host decision copies the whole
-    stack).  A dst naming the spare page is a padding lane."""
-    for u, key, _ in _layers(cfg):
-        attention.pool_copy_pages(cache[u][key], src_ids, dst_ids)
+    stack).  A dst naming the spare page is a padding lane.  SSM layers
+    hold per-slot state, not pages, and pass through untouched."""
+    for u, key, kind, _ in _layers(cfg):
+        if kind != "ssm":
+            attention.pool_copy_pages(cache[u][key], src_ids, dst_ids)
     return cache

@@ -23,6 +23,7 @@ parallelism.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import math
 import time
@@ -34,7 +35,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import linear as sl
 from repro_torch.kernels import ops as kops
-from repro_torch.models import model as M
+from repro_torch.models import model as M, moe
 from repro_torch.runtime import draft as draft_mod, faults as fl
 from repro_torch.runtime import scheduler as sch
 from repro_torch.runtime.kv_cache import KVCacheManager, PagedKVConfig
@@ -58,7 +59,10 @@ class ServeStats:
 def pack_params(params: dict[str, Any], cfg: ModelConfig) -> dict[str, Any]:
     """Load-time compression (§4.3): run ``linear.prepare`` on every
     SparseLinear leaf-dict (a dict holding only a weight matrix 'w').
-    Embedding tables and routers are not GEMMs and stay as they are."""
+    Embedding tables and routers are not GEMMs and stay as they are.  An
+    MoE block's expert stacks run as batched matmuls, not SparseLinear:
+    they are pruned to the pattern once here (``moe.prune_stacks``),
+    where JAX prunes them on every call."""
     sp = cfg.sparsity
     if sp.mode == "dense" or sp.pattern is None:
         return params
@@ -67,8 +71,10 @@ def pack_params(params: dict[str, Any], cfg: ModelConfig) -> dict[str, Any]:
         if isinstance(node, list):
             return [walk(v, name) for v in node]
         if isinstance(node, dict):
-            if name in ("embed", "router") or "router" in node:
+            if name in ("embed", "router"):
                 return node
+            if "router" in node:
+                return moe.prune_stacks(node, sp)
             if set(node) == {"w"} and node["w"].dim() >= 2 \
                     and node["w"].shape[-1] % sp.pattern[1] == 0:
                 return sl.prepare(node, sp)
@@ -301,11 +307,22 @@ class _Step:
     def capture(self) -> None:
         """Record the body as a CUDA graph (once).  Call it after one eager
         run, so the kernels are built and their one-time attribute set-up
-        is done outside the capture."""
+        is done outside the capture.  A dead engine (its steps and their
+        bound bodies form a cycle) frees its graphs wherever the cyclic
+        collector runs, and freeing a graph during a capture invalidates
+        the capture: the collector runs first and stays off until the
+        capture ends."""
         graph = torch.cuda.CUDAGraph()
-        with kops.recorded_launches() as counts:
-            with torch.cuda.graph(graph):
-                out = self.body(self.inputs)
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with kops.recorded_launches() as counts:
+                with torch.cuda.graph(graph):
+                    out = self.body(self.inputs)
+        finally:
+            if collecting:
+                gc.enable()
         self.graph, self.out, self.counts = graph, out, counts
         self.captures += 1
 
@@ -341,6 +358,14 @@ class ServeEngine:
     pools are updated in place.  ``first_logits[rid]`` keeps the logits
     of each request's last prefill chunk (its first token).
 
+    On a stack with SSM layers each slot also carries recurrent state: a
+    prefill chunk names its slot and whether it is the sequence's first
+    (``reset`` zeroes the slot's state), and a decode step keeps the
+    state of inactive slots.  As in JAX, such an engine refuses
+    ``prefix_cache`` and ``speculate``.  Under MoE the rows of a step
+    share expert capacity, so an inactive decode lane (fed token 0, as
+    JAX feeds it) takes capacity too.
+
     ``_eager`` (private) keeps a CUDA engine from capturing: the eager
     steps the graphs are held against."""
 
@@ -354,6 +379,16 @@ class ServeEngine:
             raise NotImplementedError("paged engine is decoder-only")
         self.device = resolve_device(device)
         self.params, self.cfg = params, cfg
+        if ec.prefix_cache and cfg.uses_ssm:
+            raise ValueError(
+                "prefix_cache requires an attention-only stack: SSM layers "
+                "carry per-slot recurrent state that cached pages cannot "
+                "restore at the resume point (DESIGN.md §11)")
+        if ec.speculate > 0 and cfg.uses_ssm:
+            raise ValueError(
+                "speculate requires an attention-only stack: SSM layers "
+                "advance per-slot recurrent state in place, so a rejected "
+                "draft suffix cannot be rolled back (DESIGN.md §14)")
         if ec.speculate < 0:
             raise ValueError(f"speculate={ec.speculate} must be >= 0")
         # prefix-cache entries are keyed to the exact serving recipe
@@ -393,8 +428,8 @@ class ServeEngine:
         self._steps = {
             "prefill": _Step({"tokens": (1, ec.prefill_chunk),
                               "page_table": (1, maxp), "start": (),
-                              "real_len": ()}, self._prefill_body,
-                             self.device),
+                              "real_len": (), "slot": (), "reset": ()},
+                             self._prefill_body, self.device),
             "decode": _Step({"tokens": (bmax,), "page_table": (bmax, maxp),
                              "kv_len": (bmax,), "active": (bmax,)},
                             self._decode_body, self.device),
@@ -423,8 +458,8 @@ class ServeEngine:
     def _prefill_body(self, inp):
         logits, _ = M.paged_prefill_chunk(
             self.params, self.cfg, inp["tokens"], self.cache,
-            inp["page_table"], inp["start"], inp["real_len"],
-            self.ecfg.page_size)
+            inp["page_table"], inp["start"], inp["real_len"], inp["slot"],
+            inp["reset"] != 0, self.ecfg.page_size)
         return torch.argmax(logits, -1).to(torch.int32), logits
 
     def _decode_body(self, inp):
@@ -487,10 +522,14 @@ class ServeEngine:
         if remaining > 0:
             time.sleep(remaining)
 
-    def _prefill(self, tokens, page_table, start: int, length: int):
-        """Dispatch one prompt chunk; returns its (ids, logits) outputs."""
+    def _prefill(self, tokens, page_table, start: int, length: int,
+                 slot: int = 0, reset: bool = False):
+        """Dispatch one prompt chunk of the sequence in ``slot`` (``reset``
+        on its first chunk zeroes the slot's SSM state); returns its
+        (ids, logits) outputs."""
         return self._dispatch("prefill", tokens=tokens, page_table=page_table,
-                              start=start, real_len=length).run()
+                              start=start, real_len=length, slot=slot,
+                              reset=reset).run()
 
     def _decode(self, token, page_table, kv_len, active):
         """Dispatch one decode step; ``token=None`` threads the previous
@@ -532,7 +571,8 @@ class ServeEngine:
         """Run every step once on dummy inputs that write nothing real (a
         zero-length prefill chunk, decode and verify steps with every slot
         inactive, a COW call whose lanes all copy into the spare page:
-        their writes land in the spare page): the kernels build,
+        their writes land in the spare page, and slot 0's SSM state is
+        written back unchanged): the kernels build,
         load and make their one-time set-up here, outside any measured
         window.  On CUDA each step is then captured as a CUDA graph, once
         per engine, and asserted to hold exactly one capture.  The page
@@ -542,7 +582,8 @@ class ServeEngine:
         t0 = time.time()
         ptab = self.kv.page_table_array()
         dummy = {"prefill": dict(tokens=np.zeros((1, ec.prefill_chunk)),
-                                 page_table=ptab[:1], start=0, real_len=0),
+                                 page_table=ptab[:1], start=0, real_len=0,
+                                 slot=0, reset=False),
                  "decode": dict(tokens=np.zeros(ec.max_batch),
                                 page_table=ptab,
                                 kv_len=np.zeros(ec.max_batch),
@@ -759,7 +800,8 @@ class ServeEngine:
         chunk = seq.prompt[start:start + length]
         chunk = chunk + [0] * (self.ecfg.prefill_chunk - length)
         pt = self.kv.page_table_array()[seq.slot:seq.slot + 1]
-        ids, logits = self._prefill([chunk], pt, start, length)
+        ids, logits = self._prefill([chunk], pt, start, length, seq.slot,
+                                    start == seq.resume_pos)
         self.sched.completed_prefill(decision)
         if not seq.prefilling:  # prompt done -> first token
             # the static output is overwritten by the next chunk
