@@ -105,7 +105,26 @@ Phases (any failed check exits nonzero):
    divergence from one-shot logged with the one-shot top-2 margin there
    and held to a tie within rounding, and every stream equal to one-shot
    with fp32 pages.
-9. a ``kernels`` JSON line (the five kernels, launches of the
+9. the audio and vision families (ROADMAP A.3): B1 and B3 int8
+   bit-equal at whisper-small's and qwen2-vl-72b's projection shapes x R
+   in {1, 4, prefill_chunk} and at R = 6000 (4 x 1500 audio frames) for
+   whisper's K = 768 shapes, B1 and B3 with bias + GELU within phase
+   2b's tolerance, B2 at 64 query heads over 8 KV heads of 128 (bf16 and
+   int8 pools); whisper-small at full width and depth (12 + 12 layers),
+   one seeded draw packed both ways, served one-shot through
+   ``generate`` with seeded audio frames [4, 1500, 768]: slided ==
+   compressed bit for bit, 121 kernel launches a decode step, the first
+   decode step's logits against a full prefill over [tokens; next]
+   beside two planted faults (the step's position one off, the last
+   encoder frame dropped), the same at recipe none in fp32, a profiled
+   decode step and the share of its cross-K/V projections;
+   qwen2-vl-72b at full width, depth cut to QWEN_LAYERS, phase 8's
+   engine gates (text only), phase 4's logits gate, one-shot
+   ``generate`` with a vision prefix [4, 256, 8192] in 320-token prompts
+   (slided == compressed, decode vs full prefill beside the prefix left
+   out), and ``apply_mrope`` on the card (equal streams == RoPE bit for
+   bit).  The phase prints its time.
+10. a ``kernels`` JSON line (the five kernels, launches of the
    h2o-danube-3-4b runs), the card line, and the final result line.
 
 It imports neither JAX nor the JAX package, and prints every table it
@@ -134,6 +153,14 @@ STEP_COUNTS = {(3840, 3840): 48, (960, 3840): 48, (10240, 3840): 48,
 # engine read at most 0.0663 on the H100, the planted faults at least 0.47
 # per request (PERF.md); the limit sits between, 3x above the former
 LOGIT_RL2 = 0.2
+# whisper's decode step against a full prefill over [tokens; next],
+# relative L2 of the logits.  int8: a sound step read 0.0186 on the H100,
+# the step's position one off 0.0585, so the limit sits between; the last
+# of 1500 encoder frames dropped moves the logits by 3.6e-4 (fp32), far
+# inside int8's rounding, and is held by the fp32 gate only.  Recipe none
+# in fp32: sound 8.7e-7, the faults 0.0545 and 3.6e-4; the limit sits
+# near the geometric mean of the sound reading and the frame fault's
+WHISPER_RL2, WHISPER_FLOAT_RL2 = 0.035, 2e-5
 B2_TOL = 1e-4                  # fp32 queries: max abs error, outputs O(1)
 
 
@@ -1103,6 +1130,10 @@ def _hold_graphed(torch, eager, e_out, e_launches, graphed, g_out,
         f"logits bit-equal, launches equal {g_launches}; 1 capture per step")
 
 
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
 def _logits_gate(torch, cfg, params, ecfg, prompts, eng, out, label,
                  limit=LOGIT_RL2, separate=False):
     """Hold ``eng``'s last-prefill logits to the one-shot prefill on the
@@ -1127,9 +1158,6 @@ def _logits_gate(torch, cfg, params, ecfg, prompts, eng, out, label,
     # missing its newest key (kv_len one short at the paged-attention
     # call), and "dropped", the engine's logits against the one-shot
     # prefill of the prompt without its last token.
-    def rel_l2(a, b):
-        return ((a - b).norm() / b.norm()).item()
-
     orig = kops.paged_attention
 
     def short_by_one(q, pool, page_table, kv_len, **kw):
@@ -1152,9 +1180,9 @@ def _logits_gate(torch, cfg, params, ecfg, prompts, eng, out, label,
         tok = torch.tensor([p], dtype=torch.int32, device="cuda")
         ref = M.prefill(params, cfg, tok)[0][0].float()
         got = eng.first_logits[i].float()
-        read["sound"].append(rel_l2(got, ref))
-        read["short"].append(rel_l2(bad.first_logits[i].float(), ref))
-        read["dropped"].append(rel_l2(
+        read["sound"].append(_rel_l2(got, ref))
+        read["short"].append(_rel_l2(bad.first_logits[i].float(), ref))
+        read["dropped"].append(_rel_l2(
             got, M.prefill(params, cfg, tok[:, :-1])[0][0].float()))
         ref_toks, _ = serve_loop.generate(params, cfg, tok, NEW_TOKENS)
         same += sum(int(a == b) for a, b in zip(ref_toks[0].tolist(),
@@ -1838,8 +1866,9 @@ FAMILY_SHAPES = [(1536, 1536), (512, 1536), (49155, 1536), (3072, 1536),
 
 
 def _family_setup(torch, arch, recipe="int8", dtype=None,
-                  modes=("compressed", "slided")):
-    """``arch`` at its registered width and depth, 6:8, fused attention,
+                  modes=("compressed", "slided"), num_layers=None):
+    """``arch`` at its registered width and depth (or ``num_layers``),
+    6:8, fused attention,
     random weights from the seed-0 generator: every SSM ``wo`` is drawn
     too (N(0, 1) * d_inner^-0.5; the init's zeros make the block the
     identity).  One draw packed in each of ``modes``; the MoE expert
@@ -1855,6 +1884,8 @@ def _family_setup(torch, arch, recipe="int8", dtype=None,
     base = registry.get(arch)
     if dtype:
         base = dataclasses.replace(base, dtype=dtype, kv_cache_dtype=dtype)
+    if num_layers:
+        base = dataclasses.replace(base, num_layers=num_layers)
     t0 = time.time()
     gen = torch.Generator(device="cuda").manual_seed(0)
     raw = M.draw_ssm_wo(M.init(base, gen), base, gen)
@@ -1863,7 +1894,8 @@ def _family_setup(torch, arch, recipe="int8", dtype=None,
         cfg = dataclasses.replace(base, sparsity=SparsityConfig(
             pattern=(6, 8), mode=mode, recipe=recipe, fused_attention=True))
         params = serve_loop.pack_params(raw, cfg)
-        for unit, packed in zip(raw["units"], params["units"]):
+        for unit, packed in zip(raw.get("units", ()),
+                                params.get("units", ())):
             for key, lp in packed.items():
                 if "router" in lp.get("ffn", {}):
                     unit[key]["ffn"] = lp["ffn"]  # pruned: reused as is
@@ -1903,66 +1935,84 @@ def _interleaved(trace):
         trace[j].startswith("decode") for j in range(ix[0] + 1, ix[-1]))]
 
 
-def _family_kernel_shapes(torch):
-    """The kernel shapes the two models add, against the plain versions:
-    B2 at granite's head_dim 64 with 3 query heads per KV head (window
-    off; decode at B = 4 and a 128-lane prefill chunk; fp32 queries within
-    B2_TOL, bf16 queries within 2^-7 of max|plain| and launched twice
-    bit-identical); B1 and B3 (int8, bit-equal) at FAMILY_SHAPES x R in
-    {1, 4, prefill_chunk}."""
+def _b2_geometry(torch, gen, h, kvh, hd, pools=("bf16",)):
+    """B2 at one head geometry (window off; decode at B = 4 up to 1000
+    tokens and a 128-lane prefill chunk) against its split plain version
+    at the kernel's split count: fp32 queries within B2_TOL, bf16 queries
+    within 2^-7 of max|plain| and launched twice bit-identical, for each
+    pool kind of ``pools`` (bf16, int8).  Returns the largest error."""
+    from repro_torch.kernels import ref, paged_attention as pa
+
+    ps, num_pages, err = 16, 320, 0.0
+    for kind in pools:
+        shape = (num_pages, ps, kvh, hd)
+        if kind == "bf16":
+            pool = {n: torch.randn(shape, generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                    for n in ("k", "v")}
+        else:
+            pool = {n: torch.randint(-127, 128, shape, generator=gen,
+                                     device="cuda", dtype=torch.int8)
+                    for n in ("k", "v")}
+            for n in ("k_scale", "v_scale"):
+                pool[n] = torch.rand((num_pages, ps, kvh, 1), generator=gen,
+                                     device="cuda") * 0.02 + 1e-3
+        for name, kv_len, lanes in (("decode", [1000, 517, 77, 260], 1),
+                                    ("prefill", [257], PREFILL_CHUNK)):
+            b = len(kv_len)
+            maxp = -(-(max(kv_len) + lanes - 1) // ps) + 2
+            splits = pa.splits_for(b, kvh, maxp, ps, lanes, h // kvh)
+            perm = torch.randperm(num_pages - 1, generator=gen,
+                                  device="cuda") + 1
+            table = torch.zeros((b, maxp), dtype=torch.int32, device="cuda")
+            used = 0
+            for i, n_tok in enumerate(kv_len):
+                n = -(-(n_tok + lanes - 1) // ps)
+                table[i, :n] = perm[used:used + n].to(torch.int32)
+                used += n
+            kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+            q = torch.randn((b, lanes, h, hd), generator=gen, device="cuda")
+            qb = q.to(torch.bfloat16)
+            exact = name != "prefill"
+            y = pa.paged_attention_cuda(q, pool, table, kvl, None)
+            y_ref = ref.flash_paged_split(q, pool, table, kvl, None, splits)
+            yb = pa.paged_attention_cuda(qb, pool, table, kvl, None, exact)
+            yb2 = pa.paged_attention_cuda(qb, pool, table, kvl, None, exact)
+            yb_ref = ref.flash_paged_split(qb, pool, table, kvl, None,
+                                           splits)
+            e32 = (y - y_ref).abs().max().item()
+            e16 = (yb.float() - yb_ref.float()).abs().max().item()
+            label = f"B2 hd={hd} H={h} KVH={kvh} {kind} pool {name}"
+            assert e32 <= B2_TOL, f"{label} fp32: {e32}"
+            assert e16 <= 2 ** -7 * yb_ref.float().abs().max().item(), \
+                f"{label} bf16: {e16}"
+            assert torch.equal(yb, yb2), f"{label}: two launches differ"
+            err = max(err, e32, e16)
+            log(f"{label} (S={splits}): fp32 err {e32:.3g}, bf16 err "
+                f"{e16:.3g}, launched twice bit-identical")
+        del pool
+    return err
+
+
+def _b13_bit_equal(torch, gen, shapes, rows):
+    """B1 and B3 (int8) bit-equal to their plain versions at each (N, K)
+    of ``shapes`` and each R of ``rows`` (a tuple, or a function of the
+    shape giving one).  Returns ({"B1": err, "B3": err}, cases)."""
     from repro_torch.core import linear as sl
     from repro_torch.core.compressed import CompressedSlided
     from repro_torch.kernels import fused_slide_matmul as fsm, ref, \
-        paged_attention as pa, slide_matmul as smm
+        slide_matmul as smm
 
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    h, kvh, hd, ps, num_pages = 24, 8, 64, 16, 320
-    err = {"B1": 0.0, "B2": 0.0, "B3": 0.0}
-    pool = {n: torch.randn((num_pages, ps, kvh, hd), generator=gen,
-                           device="cuda").to(torch.bfloat16)
-            for n in ("k", "v")}
-    for name, kv_len, lanes in (("decode", [1000, 517, 77, 260], 1),
-                                ("prefill", [257], PREFILL_CHUNK)):
-        b = len(kv_len)
-        maxp = -(-(max(kv_len) + lanes - 1) // ps) + 2
-        splits = pa.splits_for(b, kvh, maxp, ps, lanes, h // kvh)
-        perm = torch.randperm(num_pages - 1, generator=gen,
-                              device="cuda") + 1
-        table = torch.zeros((b, maxp), dtype=torch.int32, device="cuda")
-        used = 0
-        for i, n_tok in enumerate(kv_len):
-            n = -(-(n_tok + lanes - 1) // ps)
-            table[i, :n] = perm[used:used + n].to(torch.int32)
-            used += n
-        kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
-        q = torch.randn((b, lanes, h, hd), generator=gen, device="cuda")
-        qb = q.to(torch.bfloat16)
-        exact = name != "prefill"
-        y = pa.paged_attention_cuda(q, pool, table, kvl, None)
-        y_ref = ref.flash_paged_split(q, pool, table, kvl, None, splits)
-        yb = pa.paged_attention_cuda(qb, pool, table, kvl, None, exact)
-        yb2 = pa.paged_attention_cuda(qb, pool, table, kvl, None, exact)
-        yb_ref = ref.flash_paged_split(qb, pool, table, kvl, None, splits)
-        e32 = (y - y_ref).abs().max().item()
-        e16 = (yb.float() - yb_ref.float()).abs().max().item()
-        assert e32 <= B2_TOL, f"B2 hd64 {name} fp32: {e32}"
-        assert e16 <= 2 ** -7 * yb_ref.float().abs().max().item(), \
-            f"B2 hd64 {name} bf16: {e16}"
-        assert torch.equal(yb, yb2), f"B2 hd64 {name}: two launches differ"
-        err["B2"] = max(err["B2"], e32, e16)
-        log(f"B2 hd=64 H=24 KVH=8 {name} (S={splits}): fp32 err {e32:.3g}, "
-            f"bf16 err {e16:.3g}, launched twice bit-identical")
-    del pool
-
-    cases = 0
+    err, cases = {"B1": 0.0, "B3": 0.0}, 0
     for mode in ("compressed", "slided"):
         cfg = sl.SparsityConfig(pattern=(6, 8), mode=mode, recipe="int8")
         rec, dec = cfg.recipe, cfg.decomposition()
-        for m, k in FAMILY_SHAPES:
+        for m, k in shapes:
             w = (torch.randn((m, k), generator=gen, device="cuda")
                  * k ** -0.5).to(torch.bfloat16)
             p = sl.prepare({"w": w}, cfg)
-            for r in (1, 4, PREFILL_CHUNK):
+            del w
+            for r in (rows(m, k) if callable(rows) else rows):
                 x = torch.randn((r, k), generator=gen,
                                 device="cuda").to(torch.bfloat16)
                 if mode == "compressed":
@@ -1988,11 +2038,24 @@ def _family_kernel_shapes(torch):
                     f"{name} int8 {m}x{k} R={r}: not bit-equal ({e})"
                 err[name] = max(err[name], e)
                 cases += 1
-            del w, p
-    torch.cuda.empty_cache()
+                del x, y, y_ref
+            del p
+            torch.cuda.empty_cache()
+    return err, cases
+
+
+def _family_kernel_shapes(torch):
+    """The kernel shapes the two models add, against the plain versions:
+    B2 at granite's head_dim 64 with 3 query heads per KV head (bf16
+    pool); B1 and B3 (int8, bit-equal) at FAMILY_SHAPES x R in
+    {1, 4, prefill_chunk}."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    b2 = _b2_geometry(torch, gen, 24, 8, 64)
+    err, cases = _b13_bit_equal(torch, gen, FAMILY_SHAPES,
+                                (1, 4, PREFILL_CHUNK))
     log(f"B1 and B3 int8 at the families' shapes {FAMILY_SHAPES} x R in "
         f"(1, 4, {PREFILL_CHUNK}): {cases} cases bit-equal to plain")
-    return err
+    return {**err, "B2": b2}
 
 
 def _family_overlapped(torch, arch, cfg, params, ecfg, prompts, sync_eng,
@@ -2083,16 +2146,18 @@ def _moe_logits(torch, arch, cfg, params, ecfg, prompts, eng, out):
             {k: max(v) for k, v in nd_read.items()})
 
 
-def _family_run(torch, card, arch):
-    """One model of phase 8: eager and graphed engines of both packings,
-    held to each other; for MoE the logits gate, for SSM the interleaved
-    schedule; the overlapped loop; a profile of graphed decode steps; and
+def _family_run(torch, card, arch, setup=None):
+    """One model of phase 8 (or 9): eager and graphed engines of both
+    packings, held to each other; for MoE the logits gates, for SSM the
+    interleaved schedule, for an attention-only stack phase 4's logits
+    gate; the overlapped loop; a profile of graphed decode steps; and
     eager, graphed and overlapped decode tok/s in turns (slided, a fresh
-    engine each turn)."""
+    engine each turn).  ``setup``: ``_family_setup``'s result, made here
+    (registered depth) where not given."""
     import dataclasses
     from repro_torch.runtime import serve_loop
 
-    packs, prompts, ecfg = _family_setup(torch, arch)
+    packs, prompts, ecfg = setup or _family_setup(torch, arch)
     res = {"launches": {}}
     engines = {}
     for mode, (cfg, params) in packs.items():
@@ -2128,6 +2193,10 @@ def _family_run(torch, card, arch):
     if cfg.uses_moe:
         res["logits"], res["logits_no_drop"] = _moe_logits(
             torch, arch, cfg, params, ecfg, prompts, eng, c_out)
+    elif not cfg.uses_ssm:
+        read = _logits_gate(torch, cfg, params, ecfg, prompts, eng, c_out,
+                            f"{arch} int8")
+        res["logits"] = {k: max(v) for k, v in read.items()}
     if cfg.uses_ssm:
         inter = _interleaved(eng.sched.trace)
         assert inter, f"{arch}: no decode step between two prefill chunks " \
@@ -2227,6 +2296,393 @@ def report_families(fam, card):
         f"{fam['err']} ({card})")
 
 
+# ----------------------------------------------------------------- phase 9
+# B1/B3 shapes (N, K) the two models add: whisper's attention and MLP
+# projections and lm_head; qwen2-vl's wq/wo, wk/wv, gate/up, down, lm_head
+WHISPER_SHAPES = [(768, 768), (3072, 768), (768, 3072), (51865, 768)]
+QWEN_SHAPES = [(8192, 8192), (1024, 8192), (29568, 8192), (8192, 29568),
+               (152064, 8192)]
+AUDIO_BATCH, AUDIO_PROMPT = 4, 16
+# qwen2-vl-72b's depth on one card: both packings of one draw must fit
+# beside the bf16 embedding (PERF.md section 4)
+QWEN_LAYERS = 4
+VISION_TOKENS, VISION_PROMPT = 256, 320
+
+
+def _av_kernels(torch):
+    """The kernel shapes and epilogue the audio and vision families add,
+    against the plain versions: B1 and B3 int8 bit-equal at
+    WHISPER_SHAPES and QWEN_SHAPES x R in {1, 4, prefill_chunk}, and at
+    R = B x 1500 frames for whisper's K = 768 shapes (the encoder and the
+    cross K/V); B1 and B3 with bias + GELU (whisper's fused MLP) within
+    2^-7 of max|plain|, phase 2b's tolerance for bias + SiLU; B2 at
+    qwen2-vl's 64 query heads over 8 KV heads of 128, bf16 and int8 pools."""
+    from repro_torch.core import linear as sl
+    from repro_torch.core.compressed import CompressedSlided
+    from repro_torch.kernels import fused_slide_matmul as fsm, ref, \
+        slide_matmul as smm
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = AUDIO_BATCH * 1500
+
+    def whisper_rows(m, k):
+        return (1, 4, PREFILL_CHUNK) + ((rows,) if k == 768 else ())
+
+    err, n_w = _b13_bit_equal(torch, gen, WHISPER_SHAPES, whisper_rows)
+    err_q, n_q = _b13_bit_equal(torch, gen, QWEN_SHAPES,
+                                (1, 4, PREFILL_CHUNK))
+    err = {k: max(v, err_q[k]) for k, v in err.items()}
+    log(f"B1 and B3 int8 bit-equal to plain: {n_w} cases at whisper's "
+        f"{WHISPER_SHAPES} (R 1, 4, {PREFILL_CHUNK}; {rows} at K = 768), "
+        f"{n_q} at qwen2-vl's {QWEN_SHAPES}")
+
+    m, k = 3072, 768
+    w = (torch.randn((m, k), generator=gen, device="cuda")
+         * k ** -0.5).to(torch.bfloat16)
+    bias = torch.randn((m,), generator=gen, device="cuda")
+    for mode in ("compressed", "slided"):
+        cfg = sl.SparsityConfig(pattern=(6, 8), mode=mode, recipe="int8")
+        rec, dec = cfg.recipe, cfg.decomposition()
+        p = sl.prepare({"w": w}, cfg)
+        for r in (4, PREFILL_CHUNK):
+            x = torch.randn((r, k), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            if mode == "compressed":
+                c = CompressedSlided(p["values"], p["indices"], k, 6, 8, 2, 4)
+                qx = rec.quantize_act(x)
+                y = smm.compressed_matmul_cuda(
+                    qx.q, c.values, c.indices, qx.scale, p["s_w"], bias,
+                    n_fam=4, out_dtype=torch.bfloat16, activation="gelu")
+                y_ref = ref.compressed_matmul_dequant(
+                    qx.q, qx.scale, c, p["s_w"], torch.bfloat16, bias,
+                    "gelu")
+                name = "B1"
+            else:
+                y = fsm.fused_slided_matmul_cuda(
+                    x, p["sp_values"], p["sp_meta"], p["s_w"], bias,
+                    n_fam=4, out_dtype=torch.bfloat16, activation="gelu")
+                y_ref = ref.slided_matmul_sparse(
+                    x, p["sp_values"], p["sp_meta"], p["s_w"], dec, rec,
+                    torch.bfloat16, bias=bias, activation="gelu")
+                name = "B3"
+            e = (y.float() - y_ref.float()).abs().max().item()
+            scale = y_ref.float().abs().max().item()
+            assert e <= 2 ** -7 * scale, \
+                f"{name} int8 + bias + GELU {m}x{k} R={r}: {e} > 2^-7*{scale}"
+            err[name] = max(err[name], e)
+            log(f"{name} int8 + bias + GELU {m}x{k} R={r}: max abs err "
+                f"{e:.3g} (max|plain| {scale:.3g})")
+    del w, p
+    err["B2"] = _b2_geometry(torch, gen, 64, 8, 128, ("bf16", "int8"))
+    torch.cuda.empty_cache()
+    return err
+
+
+def _whisper_decode_check(torch, cfg, params, tokens, audio, limit,
+                          label, gated=("position", "frame")):
+    """JAX's own cross-check (``tests/test_models_smoke.py``): the first
+    decode step's logits against a full prefill over [tokens; next], as
+    the relative L2 distance, within ``limit``; two planted faults are
+    read in the same run, the decode step's sinusoidal and RoPE position
+    one off and its cross-attention without the last encoder frame, and
+    those named in ``gated`` must exceed the limit.  Returns the
+    readings."""
+    from unittest import mock
+    from repro_torch.models import attention, encdec, layers
+    from repro_torch.models import model as M
+
+    s = tokens.shape[1]
+    logits, cache, kv_len = M.prefill(params, cfg, tokens, max_len=s + 4,
+                                      extra_embeds=audio)
+    nxt = torch.argmax(logits, -1).to(torch.int32)
+    full = M.prefill(params, cfg, torch.cat([tokens, nxt[:, None]], 1),
+                     max_len=s + 4, extra_embeds=audio)[0]
+
+    def step():  # rewrites the cache's row s: each call sees the same cache
+        return M.serve_step(params, cfg, nxt, cache, kv_len)[0]
+
+    sin_at, rope, cross = (layers.sinusoidal_positions_at, attention._rope,
+                           encdec._cross_kv)
+    read = {"sound": _rel_l2(step(), full)}
+    with mock.patch.object(layers, "sinusoidal_positions_at",
+                           lambda p, d: sin_at(p + 1, d)), \
+            mock.patch.object(attention, "_rope", lambda spec, x, p: rope(
+                spec, x, None if p is None else p + 1)):
+        read["position"] = _rel_l2(step(), full)
+    with mock.patch.object(encdec, "_cross_kv", lambda lp, c, e: tuple(
+            t[:, :-1] for t in cross(lp, c, e))):
+        read["frame"] = _rel_l2(step(), full)
+    log(f"whisper decode vs prefill over [tokens; next] ({label}), "
+        f"relative L2 of the logits: sound {read['sound']:.3g}, planted "
+        f"faults: position one off {read['position']:.3g}, last encoder "
+        f"frame dropped {read['frame']:.3g}; limit {limit}")
+    assert read["sound"] <= limit, \
+        f"whisper {label}: decode off the prefill by {read['sound']}"
+    for fault in gated:
+        assert read[fault] > limit, \
+            f"whisper {label}: planted fault {fault} ({read[fault]}) " \
+            "passes the gate"
+    return read
+
+
+def _profile_calls(torch, fn, n, label):
+    """A torch.profiler trace of ``n`` calls of ``fn``: device time a call
+    (the union of device activity) and the device operations that took
+    the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation)
+    assert dev, f"profile {label}: no device activity recorded"
+    busy, end, by = 0.0, dev[0][0], {}
+    for a, b, name in dev:
+        by[name] = by.get(name, 0.0) + b - a
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    device_ms = busy / n / 1e3
+    log(f"profile {label}: {n} calls, {len(dev)} device activities, device "
+        f"time {device_ms:.3f} ms a call")
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
+    for name, us in top:
+        log(f"  top device op {label}: {us / n / 1e3:.3f} ms a call  "
+            f"{name[:100]}")
+    return device_ms
+
+
+def _whisper(torch, card):
+    """whisper-small at full width and depth (12 + 12 layers, d 768),
+    6:8 int8, bf16, one seeded draw packed both ways, served one-shot
+    through ``generate`` with seeded audio frames; its gates and record."""
+    from repro_torch.models import encdec
+    from repro_torch.models import model as M
+    from repro_torch.runtime import serve_loop
+
+    counters = _counters()
+    packs, _, _ = _family_setup(torch, "whisper-small")
+    cfg = packs["compressed"][0]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    audio = torch.randn((AUDIO_BATCH, cfg.max_source_positions, cfg.d_model),
+                        generator=gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (AUDIO_BATCH, AUDIO_PROMPT),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    # linears of a decode step: per decoder layer 4 self-attention, 4
+    # cross-attention (wk, wv over the encoder output again) and 2 MLP
+    per_step = cfg.num_layers * (4 + 4 + 2) + 1
+    res = {"launches": {}, "first": {}, "tokens": {}}
+    for mode, (cfg, params) in packs.items():
+        mine = "compressed_matmul" if mode == "compressed" \
+            else "fused_slided_matmul"
+        logits, cache, kv_len = M.prefill(params, cfg, tokens,
+                                          max_len=AUDIO_PROMPT + 1,
+                                          extra_embeds=audio)
+        res["first"][mode] = logits
+        nxt = torch.argmax(logits, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        for mod in counters.values():
+            mod.reset_counts()
+        M.serve_step(params, cfg, nxt, cache, kv_len)
+        torch.cuda.synchronize()
+        step = {k: mod.launch_count() for k, mod in counters.items()}
+        assert step[mine] == per_step, (mode, step)
+        assert sum(step.values()) == per_step, (mode, step)
+        for mod in counters.values():
+            mod.reset_counts()
+        toks, stats = serve_loop.generate(params, cfg, tokens, NEW_TOKENS,
+                                          extra_embeds=audio)
+        launches = {k: mod.launch_count() for k, mod in counters.items()}
+        assert launches[mine] > 0 and sum(launches.values()) == \
+            launches[mine], (mode, launches)
+        res["launches"][mode] = launches[mine]
+        res["tokens"][mode] = toks.tolist()
+        res[f"prefill_s {mode}"] = stats.prefill_s
+        res[f"tok_s {mode}"] = stats.decode_tok_s
+        log(f"whisper {mode}: one decode step launches {step[mine]} "
+            f"{mine} (reckoned {per_step}); generate {NEW_TOKENS} tokens: "
+            f"prefill {stats.prefill_s:.3f} s, decode {stats.decode_tok_s:.2f}"
+            f" tok/s, {launches[mine]} launches; sample {toks[0, :8].tolist()}"
+            f" ({card})")
+    assert res["tokens"]["slided"] == res["tokens"]["compressed"], \
+        "whisper: slided stream differs from compressed"
+    assert torch.equal(res["first"]["slided"], res["first"]["compressed"]), \
+        "whisper: slided first logits differ from compressed"
+    log(f"whisper slided == compressed: {AUDIO_BATCH} streams of "
+        f"{NEW_TOKENS} tokens and the first logits bit-equal")
+
+    cfg, params = packs["compressed"]
+    res["check"] = _whisper_decode_check(torch, cfg, params, tokens, audio,
+                                         WHISPER_RL2, "int8", ("position",))
+    # the decode step's device time and its wall time, and the device
+    # time of its cross K/V projections (24 linears at R = B x 1500) alone
+    logits, cache, kv_len = M.prefill(params, cfg, tokens,
+                                      max_len=AUDIO_PROMPT + 1,
+                                      extra_embeds=audio)
+    nxt = torch.argmax(logits, -1).to(torch.int32)
+    enc_out = cache["enc_out"]
+
+    def step():
+        M.serve_step(params, cfg, nxt, cache, kv_len)
+
+    def cross():
+        for lp in params["decoder"]:
+            encdec._cross_kv(lp, cfg, enc_out)
+
+    res["device_ms"] = _profile_calls(torch, step, 4, "whisper decode step")
+    res["cross_ms"] = _profile_calls(torch, cross, 4, "whisper cross K/V")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        step()
+    torch.cuda.synchronize()
+    res["step_ms"] = (time.perf_counter() - t0) / 4 * 1e3
+    log(f"whisper decode step (compressed, eager): {res['step_ms']:.3f} ms "
+        f"wall, {res['device_ms']:.3f} ms device, of which the cross K/V "
+        f"projections {res['cross_ms']:.3f} ms, a share of "
+        f"{res['cross_ms'] / res['device_ms']:.3f} ({card})")
+    del packs, params, cache
+    torch.cuda.empty_cache()
+
+    log("== audio and vision: whisper-small float cross-check, recipe "
+        "none, fp32, compressed ==")
+    fpacks, _, _ = _family_setup(torch, "whisper-small", recipe="none",
+                                 dtype="float32", modes=("compressed",))
+    cfg, params = fpacks["compressed"]
+    res["float"] = _whisper_decode_check(torch, cfg, params, tokens, audio,
+                                         WHISPER_FLOAT_RL2, "none, fp32")
+    del fpacks, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def _qwen(torch, card):
+    """qwen2-vl-72b at full width, depth QWEN_LAYERS: the engine gates of
+    phase 8 (text only, as JAX's engine), one-shot ``generate`` with a
+    vision prefix and its decode-vs-prefill check, M-RoPE on the card."""
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+    from repro_torch.runtime import serve_loop
+
+    arch = "qwen2-vl-72b"
+    setup = _family_setup(torch, arch, num_layers=QWEN_LAYERS)
+    res = _family_run(torch, card, arch, setup)
+    packs = setup[0]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cfg = packs["compressed"][0]
+    tokens = torch.randint(0, cfg.vocab_size, (4, VISION_PROMPT),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    vision = torch.randn((4, VISION_TOKENS, cfg.d_model), generator=gen,
+                         device="cuda")
+    streams = {}
+    for mode, (cfg, params) in packs.items():
+        toks, stats = serve_loop.generate(params, cfg, tokens, NEW_TOKENS,
+                                          extra_embeds=vision)
+        streams[mode] = toks.tolist()
+        res[f"vision tok_s {mode}"] = stats.decode_tok_s
+        log(f"qwen2-vl {mode} one-shot generate, vision prefix "
+            f"{VISION_TOKENS} of {VISION_PROMPT} tokens: prefill "
+            f"{stats.prefill_s:.3f} s, decode {stats.decode_tok_s:.2f} tok/s"
+            f" ({card})")
+    assert streams["slided"] == streams["compressed"], \
+        "qwen2-vl: slided one-shot stream differs from compressed"
+    cfg, params = packs["compressed"]
+    s = tokens.shape[1]
+    logits, cache, kv_len = M.prefill(params, cfg, tokens, max_len=s + 1,
+                                      extra_embeds=vision)
+    nxt = torch.argmax(logits, -1).to(torch.int32)
+    dec = M.serve_step(params, cfg, nxt, cache, kv_len)[0]
+    longer = torch.cat([tokens, nxt[:, None]], 1)
+    read = {"sound": _rel_l2(dec, M.prefill(params, cfg, longer,
+                                            extra_embeds=vision)[0]),
+            "no vision": _rel_l2(dec, M.prefill(params, cfg, longer)[0])}
+    log(f"qwen2-vl decode vs prefill over [tokens; next] with the vision "
+        f"prefix, relative L2 of the logits: sound {read['sound']:.3g}, "
+        f"planted fault (vision embeds left out of the prefill) "
+        f"{read['no vision']:.3g}; limit {LOGIT_RL2}")
+    assert read["sound"] <= LOGIT_RL2, read
+    assert read["no vision"] > LOGIT_RL2, read
+    res["vision"] = read
+    del packs, setup, params, cache
+    torch.cuda.empty_cache()
+
+    x = torch.randn((4, 16, 64, 128), generator=gen, device="cuda")
+    pos = torch.randint(0, 4096, (3, 4, 16), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    same = pos[:1].expand(3, -1, -1)
+    rope = layers.apply_rope(x, pos[0], cfg.rope_theta)
+    assert torch.equal(layers.apply_mrope(x, same, cfg.rope_theta), rope), \
+        "M-RoPE with equal streams differs from RoPE on the card"
+    assert not torch.equal(layers.apply_mrope(x, pos, cfg.rope_theta), rope)
+    log("apply_mrope on the card: three equal streams bit-equal to "
+        "apply_rope, distinct streams differ")
+    return res
+
+
+def phase_audio_vision(torch, card):
+    """Phase 9: whisper-small (encoder-decoder, one-shot) and qwen2-vl-72b
+    (M-RoPE, vision prefix; engine and one-shot), both modes."""
+    t0 = time.time()
+    log("== audio and vision: the kernel shapes and epilogue whisper-small "
+        "and qwen2-vl-72b add, against the plain versions ==")
+    out = {"err": _av_kernels(torch)}
+    log("== audio and vision: whisper-small 12 + 12 layers d768, 6:8 int8, "
+        "bf16; compressed and slided, one-shot generate ==")
+    out["whisper"] = _whisper(torch, card)
+    log(f"== audio and vision: qwen2-vl-72b full width, {QWEN_LAYERS} "
+        "layers, 6:8 int8, bf16, fused attention; compressed and slided, "
+        "eager, graphed, overlapped; one-shot with a vision prefix ==")
+    out["qwen"] = _qwen(torch, card)
+    out["seconds"] = time.time() - t0
+    log(f"phase 9 (audio and vision): {out['seconds']:.1f} s")
+    return out
+
+
+def report_audio_vision(av, card):
+    """Phase 9's figures, one line each, beside the card."""
+    w, q = av["whisper"], av["qwen"]
+    log(f"whisper-small one-shot (B={AUDIO_BATCH}, prompt {AUDIO_PROMPT}, "
+        f"{NEW_TOKENS} new): prefill s compressed "
+        f"{w['prefill_s compressed']:.3f}, slided {w['prefill_s slided']:.3f};"
+        f" decode tok/s compressed {w['tok_s compressed']:.2f}, slided "
+        f"{w['tok_s slided']:.2f}; decode step {w['step_ms']:.3f} ms wall, "
+        f"{w['device_ms']:.3f} ms device, cross K/V {w['cross_ms']:.3f} ms "
+        f"(share {w['cross_ms'] / w['device_ms']:.3f}); launches in generate "
+        f"{w['launches']} ({card})")
+    log("whisper decode vs prefill, relative L2: int8 " + ", ".join(
+        f"{k} {v:.5f}" for k, v in w["check"].items()) + "; fp32 none "
+        + ", ".join(f"{k} {v:.3g}" for k, v in w["float"].items()))
+    pr, tok = q["profile"], q["tok_s"]
+    log(f"qwen2-vl-72b ({QWEN_LAYERS} layers) decode tok/s (slided, in "
+        f"turns): eager {tok['eager']:.2f}, graphed {tok['graphed']:.2f}, "
+        f"graphed + overlapped {tok['overlapped']:.2f}; graphed decode step "
+        f"{pr['step_ms']:.3f} ms wall, {pr['device_ms']:.3f} ms device, host "
+        f"share {pr['host_share']:.3f}, device idle share "
+        f"{pr['idle_share']:.3f}; graph nodes {q['nodes']}; one-shot with "
+        f"vision prefix decode tok/s compressed "
+        f"{q['vision tok_s compressed']:.2f}, slided "
+        f"{q['vision tok_s slided']:.2f} ({card})")
+    for mode, n in q["launches"].items():
+        log(f"qwen2-vl-72b {mode} launches in the graphed run: "
+            f"compressed_matmul {n['compressed_matmul']}, paged_attention "
+            f"{n['paged_attention']}, fused_slided_matmul "
+            f"{n['fused_slided_matmul']}")
+    log("qwen2-vl last-prefill logits, worst relative L2: " + ", ".join(
+        f"{k} {v:.5f}" for k, v in q["logits"].items()) + "; vision "
+        "decode vs prefill: " + ", ".join(
+            f"{k} {v:.5f}" for k, v in q["vision"].items()))
+    log(f"kernel errors at the audio and vision shapes {av['err']}; phase "
+        f"9 {av['seconds']:.1f} s ({card})")
+
+
 def main() -> int:
     try:
         import torch
@@ -2316,6 +2772,8 @@ def main() -> int:
     phase_float_gate(torch, card)
     torch.cuda.empty_cache()
     families = phase_families(torch, card)
+    torch.cuda.empty_cache()
+    audio_vision = phase_audio_vision(torch, card)
     prof, tok_s = slided["profile"], slided["tok_s"]
     for label, pr in prof.items():
         log(f"slided decode step, {label}: {pr['step_ms']:.3f} ms, host "
@@ -2334,6 +2792,7 @@ def main() -> int:
     log(f"CUDA graph nodes per step: "
         f"{features['nodes'] or 'not measured'} ({card})")
     report_families(families, card)
+    report_audio_vision(audio_vision, card)
 
     def entry(name, source, replaces, n, err, st):
         return {"name": name, "route": "cuda",

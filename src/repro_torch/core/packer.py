@@ -76,23 +76,34 @@ def unpack_nibbles(p: torch.Tensor, count: int | None = None) -> torch.Tensor:
     return out if count is None else out[..., :count]
 
 
+# comparisons held at once by magnitude_keep_mask: each row's K * L of
+# them, in blocks of rows up to this many (the [R, K/L, L, L] tensor of a
+# 152064 x 8192 lm_head would not fit the card at once)
+_KEEP_BLOCK = 2 ** 27
+
+
 def magnitude_keep_mask(w: torch.Tensor, pattern: Pattern) -> torch.Tensor:
     """Boolean top-Z-by-|w| keep mask per L-group.
 
     Rank by pairwise comparison counting (O(L^2), L <= 16), not
     ``topk``/``argsort``: ties break by position, exactly as the JAX
-    packer breaks them."""
+    packer breaks them.  Rows are independent, so they are ranked in
+    blocks of at most ``_KEEP_BLOCK`` comparisons."""
     k = w.shape[-1]
     if k % pattern.l:
         raise ValueError(f"K={k} not a multiple of L={pattern.l}")
-    grp = w.to(torch.float32).abs().reshape(tuple(w.shape[:-1])
-                                            + (k // pattern.l, pattern.l))
-    a, b = grp[..., :, None], grp[..., None, :]
+    rows = w.reshape(-1, k)
     pos = torch.arange(pattern.l, device=w.device)
     earlier = pos[None, :] < pos[:, None]
-    beats_me = (b > a) | ((b == a) & earlier)  # strict rank of each slot
-    rank = beats_me.sum(dim=-1)
-    return (rank < pattern.z).reshape(w.shape)
+    step = max(1, _KEEP_BLOCK // (k * pattern.l))
+    masks = []
+    for i in range(0, rows.shape[0], step):
+        grp = rows[i:i + step].to(torch.float32).abs().reshape(
+            -1, k // pattern.l, pattern.l)
+        a, b = grp[..., :, None], grp[..., None, :]
+        beats_me = (b > a) | ((b == a) & earlier)  # strict rank of each slot
+        masks.append(beats_me.sum(dim=-1, dtype=torch.int16) < pattern.z)
+    return torch.cat(masks).reshape(w.shape)
 
 
 def prune_to_pattern(w: torch.Tensor, pattern: Pattern) -> torch.Tensor:

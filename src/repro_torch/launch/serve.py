@@ -10,11 +10,15 @@ with ``--engine``, the continuous-batching paged-KV engine:
 ``--inject-faults SEED`` (deterministic allocation and step faults with
 bounded retries) and ``--async`` (the overlapped loop).  ``--tp`` is
 accepted and refused with ``NotImplementedError`` (not ported yet).
-``--arch`` takes every decoder-only config: dense, MoE (granite-moe,
-mixtral), Mamba-2 (mamba2) and the jamba hybrid; an SSM stack's engine
-refuses ``--prefix-cache`` and ``--speculate``, as JAX's does.  The
-weights are random from a seeded generator, an SSM block's ``wo`` drawn
-too (``init`` keeps JAX's zeros, which make the block the identity).
+``--arch`` takes every config of the registry: dense, MoE (granite-moe,
+mixtral), Mamba-2 (mamba2), the jamba hybrid, qwen2-vl (M-RoPE; served
+text-only, as JAX's launcher serves it) and whisper-small (the
+encoder-decoder, fed seeded audio frames [B, 1500, d] in place of the
+conv frontend; one-shot only: with ``--engine`` the engine refuses it,
+as JAX's does).  An SSM stack's engine refuses ``--prefix-cache`` and
+``--speculate``, as JAX's does.  The weights are random from a seeded
+generator, an SSM block's ``wo`` drawn too (``init`` keeps JAX's zeros,
+which make the block the identity).
 """
 import argparse
 import dataclasses
@@ -84,6 +88,9 @@ def main(argv=None):
         M.draw_ssm_wo(M.init(cfg, gen), cfg, gen), cfg)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device, dtype=torch.int32)
+    audio = (torch.randn((args.batch, cfg.max_source_positions, cfg.d_model),
+                         generator=gen, device=device)
+             if cfg.frontend == "audio" else None)
 
     if args.engine:
         plan = (fl.FaultPlan(seed=args.inject_faults, alloc_fail_rate=0.08,
@@ -135,7 +142,8 @@ def main(argv=None):
                   f"{s.p95_queue_wait_steps:.0f} steps; kv invariants OK")
         return
 
-    toks, stats = serve_loop.generate(params, cfg, tokens, args.new_tokens)
+    toks, stats = serve_loop.generate(params, cfg, tokens, args.new_tokens,
+                                      extra_embeds=audio)
     print(f"[launch.serve] prefill {stats.prefill_s:.2f}s; decode "
           f"{stats.decode_tok_s:.1f} tok/s; sample: {toks[0][:8].tolist()}")
 

@@ -1,9 +1,10 @@
-"""Attention: GQA with RoPE and sliding windows, one-shot and paged.
+"""Attention: GQA with RoPE/M-RoPE and sliding windows, one-shot and paged.
 
-Port of ``repro.models.attention``.  The one-shot path (prefill and the
-dense-cache decode of ``generate``) is the chunked flash-style SDPA in
-plain torch; the paged path writes K/V into a shared page pool and attends
-through ``pool_attend``, which dispatches to the paged-attention kernel
+Port of ``repro.models.attention``.  The one-shot path (prefill, the
+dense-cache decode of ``generate`` and the encoder-decoder's
+cross-attention) is the chunked flash-style SDPA in plain torch; the
+paged path writes K/V into a shared page pool and attends through
+``pool_attend``, which dispatches to the paged-attention kernel
 (``sp_cfg.fused_attention``) or to the gather-then-SDPA oracle.
 
 Where JAX silently clamps or drops, torch raises, so the table reads clamp
@@ -37,6 +38,7 @@ class AttnSpec:
     rope_theta: float = 1e4
     causal: bool = True
     sliding_window: int | None = None  # None -> full/global attention
+    m_rope: bool = False
     q_chunk: int = 1024
     kv_chunk: int = 1024
 
@@ -63,6 +65,10 @@ def _split_heads(x, n, hd):
 def _rope(spec: AttnSpec, x, positions):
     if positions is None:
         return x
+    if spec.m_rope:
+        if positions.dim() == 2:  # text only: the three streams are equal
+            positions = positions[None].expand((3,) + tuple(positions.shape))
+        return layers.apply_mrope(x, positions, spec.rope_theta)
     return layers.apply_rope(x, positions, spec.rope_theta)
 
 
@@ -181,12 +187,23 @@ def _qkv(params, spec: AttnSpec, x, positions, sp_cfg):
 
 
 def apply(params, spec: AttnSpec, x, positions, sp_cfg: SparsityConfig,
-          cache=None, kv_len=None):
+          cache=None, kv_len=None, cross_kv=None):
     """Returns (out [B, S, D], cache | None).  With a cache {'k','v'}
     [B, S_max, KVH, hd] this is one decode token written at ``kv_len[0]``
     (uniform write position, batched decode), at a device index as JAX's
-    ``dynamic_update_slice``; the cache is updated in place."""
+    ``dynamic_update_slice``; the cache is updated in place.  With
+    ``cross_kv`` = (k, v) [B, T, KVH, hd] (the encoder's K/V) the queries
+    attend over it non-causally and nothing is written."""
     b, s, _ = x.shape
+    if cross_kv is not None:
+        q = _rope(spec, _split_heads(sl.apply(params["wq"], x, sp_cfg),
+                                     spec.num_heads, spec.head_dim),
+                  positions)
+        out = _chunked_sdpa(dataclasses.replace(spec, causal=False,
+                                                sliding_window=None),
+                            q, *cross_kv)
+        return sl.apply(params["wo"], out.reshape(b, s, spec.q_dim),
+                        sp_cfg), cache
     q, k, v = _qkv(params, spec, x, positions, sp_cfg)
     if cache is None:
         out = _chunked_sdpa(spec, q, k, v)

@@ -41,6 +41,48 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections=(2, 3, 3)) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): hd/2 split into (t, h, w) sections by
+    the relative weights ``sections`` (the last takes the rest), each
+    rotated by its own position stream.  x: [B, S, H, hd]; positions:
+    [3, B, S] int.  With three equal streams this is :func:`apply_rope`."""
+    hd = x.shape[-1]
+    half = hd // 2
+    total = sum(sections)
+    sizes = [half * s // total for s in sections]
+    sizes[-1] = half - sum(sizes[:-1])
+    freqs = rope_frequencies(hd, theta, x.device)
+    parts, off = [], 0
+    for stream, size in enumerate(sizes):
+        parts.append(positions[stream][..., None].to(torch.float32)
+                     * freqs[off:off + size])
+        off += size
+    angles = torch.cat(parts, dim=-1)  # [B, S, hd/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(max_len: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings [max_len, d]."""
+    return sinusoidal_positions_at(
+        torch.arange(max_len, dtype=torch.int32,
+                     device=resolve_device(device)), d)
+
+
+def sinusoidal_positions_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal rows at arbitrary positions [N] -> [N, d] (fp32), on
+    the positions' device."""
+    pos = positions.to(torch.float32)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32,
+                       device=positions.device)[None, :]
+    angle = pos / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
 def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int,
                 dtype=torch.float32):
     return {"w_gate": sl.init(gen, d_model, d_ff, dtype),

@@ -1,8 +1,13 @@
-"""Model API over the architecture families the port serves so far.
+"""Model API over every architecture family of the registry.
 
-Port of ``repro.models.model``: decoder-only stacks (attention, MoE, SSM
-and hybrid units) dispatch to ``transformer``; encoder-decoder models are
-not ported yet (ROADMAP A.3).
+Port of ``repro.models.model``: decoder-only stacks (attention with RoPE
+or M-RoPE, MoE, SSM and hybrid units) dispatch to ``transformer``, the
+encoder-decoder (whisper) to ``encdec``.  ``extra_embeds`` carries the
+modality frontend stub's output: the audio frames [B, T, D] an
+encoder-decoder needs, or the vision patch embeddings [B, n, D] summed
+into a decoder's first n prompt positions.  The paged engine's steps are
+decoder-only, as in JAX: encoder-decoder models serve through the
+one-shot ``serve_loop.generate``.
 """
 from __future__ import annotations
 
@@ -10,18 +15,14 @@ from typing import Any
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from . import transformer
-
-
-def _decoder_only(cfg: ModelConfig) -> None:
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
-                                  "not ported yet (ROADMAP A.3)")
+from . import encdec, transformer
 
 
 def init(cfg: ModelConfig, gen: torch.Generator) -> dict[str, Any]:
-    _decoder_only(cfg)
+    if cfg.is_encoder_decoder:
+        return encdec.init(cfg, gen)
     return transformer.init(cfg, gen)
 
 
@@ -29,18 +30,41 @@ def draw_ssm_wo(params, cfg: ModelConfig, gen: torch.Generator):
     return transformer.draw_ssm_wo(params, cfg, gen)
 
 
-def prefill(params, cfg: ModelConfig, tokens, max_len: int | None = None):
-    _decoder_only(cfg)
-    return transformer.prefill(params, cfg, tokens, max_len)
+def prefill(params, cfg: ModelConfig, tokens, max_len: int | None = None,
+            extra_embeds=None):
+    if cfg.is_encoder_decoder:
+        if extra_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder prefill needs "
+                             "the audio frames (extra_embeds)")
+        return encdec.prefill(params, cfg, tokens, extra_embeds, max_len)
+    return transformer.prefill(params, cfg, tokens, max_len, extra_embeds)
 
 
 def serve_step(params, cfg: ModelConfig, token, cache, kv_len):
+    if cfg.is_encoder_decoder:
+        return encdec.serve_step(params, cfg, token, cache, kv_len)
     return transformer.serve_step(params, cfg, token, cache, kv_len)
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """The one-shot dense cache: for an encoder-decoder its decoder's self
+    caches and a zero ``enc_out`` [B, max_source_positions, D]."""
+    if cfg.is_encoder_decoder:
+        return {"self": encdec.make_cache(cfg, batch, max_len, device),
+                "enc_out": torch.zeros(
+                    (batch, cfg.max_source_positions, cfg.d_model),
+                    dtype=getattr(torch, cfg.dtype),
+                    device=resolve_device(device))}
+    return transformer.make_cache(cfg, batch, max_len, device)
 
 
 def make_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      max_batch: int, device=None):
-    _decoder_only(cfg)
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            "paged serving engine covers decoder-only stacks; encoder-"
+            "decoder serving uses the dense one-shot path (serve_loop."
+            "generate)")
     return transformer.make_paged_cache(cfg, num_pages, page_size, max_batch,
                                         device)
 

@@ -6,8 +6,10 @@ list of U unit dicts (same inner keys, ``layer_i``) and loops over it in
 Python.  A layer's mixer is attention (``attn``/``swa``) or the Mamba-2
 SSD block (``ssm``), its FFN a dense SwiGLU or the MoE experts
 (``cfg.moe_pattern``), so the jamba hybrid and mixtral are these units
-under other patterns.  M-RoPE raises (ROADMAP A.3).  Every projection
-routes through ``core.linear.apply`` on ``cfg.sparsity``.
+under other patterns; qwen2-vl's attention takes M-RoPE, and its stub
+vision embeddings are summed into the prompt's first rows
+(:func:`embed_tokens`).  Every projection routes through
+``core.linear.apply`` on ``cfg.sparsity``.
 
 The paged cache holds, per attention layer, a page pool shared by every
 sequence and, per SSM layer, O(1) recurrent state for each of the
@@ -25,18 +27,13 @@ from repro_torch.core import linear as sl
 from . import attention, layers, moe, ssm
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.m_rope:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE not ported yet "
-                                  "(ROADMAP A.3)")
-
-
 def attn_spec(cfg: ModelConfig, kind: str) -> attention.AttnSpec:
     return attention.AttnSpec(
         d_model=cfg.d_model, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
         rope_theta=cfg.rope_theta, causal=True,
-        sliding_window=cfg.sliding_window if kind == "swa" else None)
+        sliding_window=cfg.sliding_window if kind == "swa" else None,
+        m_rope=cfg.m_rope)
 
 
 def ssm_spec(cfg: ModelConfig) -> ssm.SSMSpec:
@@ -69,7 +66,6 @@ def init(cfg: ModelConfig, gen: torch.Generator) -> dict[str, Any]:
     """Random weights from ``gen`` on its device, with the JAX
     distributions: linears N(0, 1) * k^-0.5, embedding 0.02 * N(0, 1),
     the SSM block's and MoE experts' own (``ssm.init``, ``moe.init``)."""
-    _check_supported(cfg)
     dt, dev = _dtype(cfg), gen.device
     units = []
     for _ in range(cfg.num_units):
@@ -124,15 +120,24 @@ def _embed(params, cfg, tokens):
     return layers.embed(params["embed"], tokens).to(_dtype(cfg))
 
 
+def embed_tokens(params, cfg: ModelConfig, tokens, extra_embeds=None):
+    """Token ids [B, S] (+ the modality frontend stub's precomputed
+    embeddings [B, n, D], summed into the first n positions) -> [B, S, D]."""
+    x = _embed(params, cfg, tokens)
+    if extra_embeds is not None:
+        x[:, :extra_embeds.shape[1]] += extra_embeds.to(x.dtype)
+    return x
+
+
 # ------------------------------------------------------------- one-shot
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
-            max_len: int | None = None):
-    """Full-prompt forward; returns (logits_last [B, V], cache, kv_len)."""
-    _check_supported(cfg)
+            max_len: int | None = None, extra_embeds=None):
+    """Full-prompt forward; returns (logits_last [B, V], cache, kv_len).
+    ``extra_embeds``: the vision stub's embeddings (:func:`embed_tokens`)."""
     b, s = tokens.shape
     max_len = max_len or s
-    xx = _embed(params, cfg, tokens)
+    xx = embed_tokens(params, cfg, tokens, extra_embeds)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
     sp = cfg.sparsity
@@ -177,6 +182,20 @@ def serve_step(params, cfg: ModelConfig, token, cache, kv_len):
     return logits_fn(params, cfg, h)[:, 0], cache, kv_len + 1
 
 
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """The one-shot dense cache, per unit: per attention layer a
+    [B, max_len, KVH, hd] cache in ``kv_cache_dtype``, per SSM layer the
+    recurrent state of each row (``prefill`` builds the same layout)."""
+    kv = getattr(torch, cfg.kv_cache_dtype)
+    device = resolve_device(device)
+    return [{f"layer_{i}": (
+        ssm.make_cache(ssm_spec(cfg), batch, device=device) if kind == "ssm"
+        else attention.make_cache(attn_spec(cfg, kind), batch, max_len, kv,
+                                  device))
+        for i, kind in enumerate(cfg.unit_pattern)}
+        for _ in range(cfg.num_units)]
+
+
 # ------------------------------------------------------- paged inference
 def make_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      max_batch: int, device=None):
@@ -185,7 +204,6 @@ def make_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     writes (``attention.make_paged_pool``), one logical page id
     addressing the same slot in every layer; per SSM layer the recurrent
     state of each of ``max_batch`` slots (``ssm.make_cache``)."""
-    _check_supported(cfg)
     kv = getattr(torch, cfg.kv_cache_dtype)
     device = resolve_device(device)
     def layer(kind):

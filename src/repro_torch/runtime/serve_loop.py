@@ -58,8 +58,10 @@ class ServeStats:
 
 def pack_params(params: dict[str, Any], cfg: ModelConfig) -> dict[str, Any]:
     """Load-time compression (§4.3): run ``linear.prepare`` on every
-    SparseLinear leaf-dict (a dict holding only a weight matrix 'w').
-    Embedding tables and routers are not GEMMs and stay as they are.  An
+    SparseLinear leaf-dict (a dict holding only a weight matrix 'w'), in
+    the unit lists of a decoder and the encoder/decoder layer lists of an
+    encoder-decoder alike.  Embedding tables and routers are not GEMMs and
+    stay as they are.  An
     MoE block's expert stacks run as batched matmuls, not SparseLinear:
     they are pruned to the pattern once here (``moe.prune_stacks``),
     where JAX prunes them on every call."""
@@ -91,15 +93,17 @@ def _sync(device: torch.device) -> None:
 
 @torch.no_grad()
 def generate(params, cfg: ModelConfig, tokens: torch.Tensor,
-             max_new_tokens: int):
+             max_new_tokens: int, *, extra_embeds=None):
     """Prefill the prompt batch [B, S], then greedy-decode
-    ``max_new_tokens`` steps.  Returns (tokens [B, max_new_tokens],
-    ServeStats)."""
+    ``max_new_tokens`` steps.  ``extra_embeds``: the modality stub's
+    output, the audio frames an encoder-decoder needs or a vision prefix
+    (``M.prefill``).  Returns (tokens [B, max_new_tokens], ServeStats)."""
     b, s = tokens.shape
     dev = tokens.device
     t0 = time.time()
     logits, cache, kv_len = M.prefill(params, cfg, tokens,
-                                      max_len=s + max_new_tokens)
+                                      max_len=s + max_new_tokens,
+                                      extra_embeds=extra_embeds)
     _sync(dev)
     t_prefill = time.time() - t0
     outs = []

@@ -74,6 +74,19 @@ def test_prune_phi_lift_match_jax(n):
                      tslide.lift(torch.from_numpy(x), dec))
 
 
+@pytest.mark.parametrize("rows", [1, 3, 5])
+def test_keep_mask_in_row_blocks_matches_jax(monkeypatch, rows):
+    """Ranked ``rows`` rows at a time (12 rows: one, several, a ragged
+    last block; leading axes flattened), the mask is JAX's bit for bit."""
+    rng = np.random.default_rng(rows)
+    dec = _dec(4)
+    w = _weights(rng, 4)
+    monkeypatch.setattr(tpk, "_KEEP_BLOCK", rows * w.shape[1] * 8)
+    w = w.reshape(3, 4, -1)
+    assert_bit_equal(jpk.magnitude_keep_mask(jnp.asarray(w), dec.source),
+                     tpk.magnitude_keep_mask(torch.from_numpy(w), dec.source))
+
+
 @pytest.mark.parametrize("n", FAMILIES)
 @pytest.mark.parametrize("packed", [False, True])
 def test_compress_decompress_match_jax(n, packed):
