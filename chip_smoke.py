@@ -124,7 +124,28 @@ Phases (any failed check exits nonzero):
    (slided == compressed, decode vs full prefill beside the prefix left
    out), and ``apply_mrope`` on the card (equal streams == RoPE bit for
    bit).  The phase prints its time.
-10. a ``kernels`` JSON line (the five kernels, launches of the
+10. single-device training (ROADMAP A.3), in two child processes, the
+   card's memory then free of earlier phases: (a) three
+   ``steps.train_step`` calls at h2o-danube-3-4b's smoke width, fp32,
+   masked 6:8, on the card and on the CPU from the same params and
+   batches (losses within rtol 1e-5, params within PARITY_RL2), beside
+   a planted fault (the STE replaced by a plain prune) that must exceed
+   that gate; (c) at full width, depth 2, after two steps every masked
+   linear's effective weight 6:8 and its gradient non-zero at the pruned
+   positions; (d) remat on (2 x 2 segments) vs off at full width, depth
+   4, loss and gradients within the REMAT gates, peak memory of each;
+   (e) int8 AdamW moments at full width, depth 2, 15 steps, the last
+   three losses below the first three; (f) exact resume at smoke width
+   (10 steps vs 6 and a resume to 10) and a bit-exact save -> restore of
+   full-width params and AdamW state at depth 1, in a temporary
+   directory; a profiled full-depth step (kernel time shares of the STE
+   masks, AdamW and the matmuls); B1-B5 launch no time; then
+   ``python -m repro_torch.launch.train`` at full width and depth,
+   masked 6:8, bf16, TRAIN_STEPS steps of 8 x 256: exit 0, finite
+   losses, the mean of the last five below the first five's by 0.1;
+   median step ms, tokens/s and peak device memory.  The phase prints
+   its time.
+11. a ``kernels`` JSON line (the five kernels, launches of the
    h2o-danube-3-4b runs), the card line, and the final result line.
 
 It imports neither JAX nor the JAX package, and prints every table it
@@ -2683,6 +2704,452 @@ def report_audio_vision(av, card):
         f"9 {av['seconds']:.1f} s ({card})")
 
 
+# ---------------------------------------------------------------- phase 10
+# the launcher at full width and depth: its default batch and sequence
+# (8 x 256 tokens a step), 30 steps; warmup_cosine's 100-step warmup
+# scales the rate by step / 100, so at lr 3e-3 the rate peaks at 8.7e-4
+# on step 29, near the peak rates LLM pretraining uses
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 256, 30, 3e-3
+PARITY_LR = 1e-2
+# (a): card vs CPU params after 3 steps, relative L2; on an H100 80GB HBM3
+# the sound card read 7.5e-9 and the planted fault 6.9e-4
+PARITY_RL2 = 1e-4
+INT8_STEPS, INT8_LR = 15, 3e-3
+# (d): remat on vs off read bit-equal on an H100 80GB HBM3; the gate leaves
+# room for a reassociation, far below what a wrong recompute would move
+REMAT_LOSS_RTOL, REMAT_GRAD_RL2 = 1e-6, 1e-5
+TRAIN_TIMEOUT = 900  # seconds, each of the two child processes
+
+
+def _masked(cfg, **over):
+    """``cfg`` with every linear (and expert stack) STE-masked at 6:8."""
+    import dataclasses
+    from repro_torch.core.linear import SparsityConfig
+    return dataclasses.replace(
+        cfg, sparsity=SparsityConfig(pattern=(6, 8), mode="masked"), **over)
+
+
+def _flat(torch, t):
+    """Every leaf of a tree, as one float64 vector on the host."""
+    from repro_torch import tree
+    return torch.cat([x.detach().reshape(-1).to("cpu", torch.float64)
+                      for x in tree.leaves(t)])
+
+
+def _bits(torch, x):
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return x.detach().reshape(-1).view(ints[x.element_size()])
+
+
+def _train_card_vs_cpu(torch):
+    """(a) Three ``steps.train_step`` calls at danube's smoke width, fp32,
+    masked 6:8, on the card and on the CPU from the same params and
+    batches; then on the card with the STE replaced by a plain prune (no
+    gradient at pruned positions), which must fail the parameter gate."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.core import masks, packer
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    cfg = _masked(registry.smoke_config("h2o-danube-3-4b"))
+    assert cfg.dtype == "float32"
+    opt = adamw.AdamWConfig(lr=PARITY_LR)
+    p0 = M.init(cfg, torch.Generator().manual_seed(0))
+    pipe = SyntheticLM(cfg, 4, 32, seed=0, host_index=0, host_count=1)
+
+    def run(device):
+        p = tree.tree_map(lambda x: x.detach().clone().to(device), p0)
+        st = adamw.init(p, opt)
+        losses = []
+        for s in range(3):
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in pipe.batch_at(s).items()}
+            p, st, m = steps.train_step(cfg, opt, p, st, batch)
+            losses.append(float(m["loss"]))
+        return losses, _flat(torch, p)
+
+    cpu_l, cpu_p = run("cpu")
+    card_l, card_p = run("cuda")
+    sound = masks.ste_prune
+    masks.ste_prune = packer.prune_to_pattern  # the planted fault
+    try:
+        fault_l, fault_p = run("cuda")
+    finally:
+        masks.ste_prune = sound
+    rl2 = float((card_p - cpu_p).norm() / cpu_p.norm())
+    frl2 = float((fault_p - cpu_p).norm() / cpu_p.norm())
+    loss_rel = max(abs(a / b - 1) for a, b in zip(card_l, cpu_l))
+    log(f"(a) card vs CPU, 3 steps: losses card {card_l} CPU {cpu_l} "
+        f"(worst relative {loss_rel:.3g}); params relative L2 {rl2:.3g} "
+        f"(gate {PARITY_RL2}); planted fault (plain prune, no STE) "
+        f"{frl2:.3g}, losses {fault_l}")
+    assert loss_rel <= 1e-5, (card_l, cpu_l)
+    assert rl2 <= PARITY_RL2 < frl2, (rl2, frl2)
+    return {"loss_rel": loss_rel, "params_rl2": rl2, "fault_rl2": frl2}
+
+
+def _full(num_layers=None, remat=True):
+    from repro_torch.configs import registry
+    over = {"remat": remat}
+    if num_layers:
+        over["num_layers"] = num_layers
+    return _masked(registry.get("h2o-danube-3-4b"), **over)
+
+
+def _setup(torch, cfg, opt_cfg=None):
+    """Seed-0 params and (given ``opt_cfg``) AdamW state on the card, and
+    the launcher's synthetic stream (8 x 256)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    params = M.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    pipe = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, host_index=0,
+                       host_count=1, device="cuda")
+    return params, opt_cfg and adamw.init(params, opt_cfg), pipe
+
+
+def _train_ste(torch):
+    """(c) Full width, depth 2: after two steps (the first at lr 0 under
+    warmup), every masked linear's effective weight is 6:8 (its dense
+    weight is not), and its gradient is non-zero at the pruned
+    positions: gradients stay dense."""
+    from repro_torch import tree
+    from repro_torch.core import masks
+    from repro_torch.core.patterns import Pattern
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    cfg = _full(2)
+    opt = adamw.AdamWConfig(lr=3e-4)
+    params, st, pipe = _setup(torch, cfg, opt)
+    for s in range(2):
+        params, st, _ = steps.train_step(cfg, opt, params, st,
+                                         pipe.device_batch_at(s))
+    leaves = steps.trainable(params)
+    grads = torch.autograd.grad(
+        M.loss_fn(params, cfg, pipe.device_batch_at(2)), leaves)
+    pat, linears, worst = Pattern(6, 8), 0, 1.0
+    for path, w, g in zip(tree.paths(params), leaves, grads):
+        if path[0] == "embed" or path[-1] != "w" or w.dim() != 2:
+            continue
+        with torch.no_grad():
+            keep = masks.magnitude_mask(w, pat)
+            eff = masks.ste_prune(w, pat)
+            assert int((eff != 0).reshape(-1, 8).sum(-1).max()) <= 6, path
+            assert int((w != 0).reshape(-1, 8).sum(-1).max()) == 8, path
+            live = float((g[~keep] != 0).to(torch.float32).mean())
+        worst = min(worst, live)
+        linears += 1
+    log(f"(c) STE, full width, 2 layers: {linears} masked linears 6:8 "
+        f"after a step, dense weights not; the least share of non-zero "
+        f"gradients at pruned positions {worst:.6f}")
+    assert linears == 7 * cfg.num_layers + 1, linears
+    assert worst >= 0.99, worst
+    return {"linears": linears, "pruned_grad_nonzero": worst}
+
+
+def _train_remat(torch):
+    """(d) Full width, depth 4 (2 x 2 remat segments): loss and gradients
+    with remat on and off, and the peak memory of each."""
+    from repro_torch.models import model as M, transformer
+    from repro_torch.runtime import steps
+
+    cfg_on = _full(4)
+    assert transformer._remat_split(cfg_on.num_units) == (2, 2)
+    params, _, pipe = _setup(torch, cfg_on)
+    batch = pipe.device_batch_at(0)
+    out = {}
+    for remat in (True, False):
+        cfg = _full(4, remat=remat)
+        leaves = steps.trainable(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = M.loss_fn(params, cfg, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        out[remat] = (float(loss.detach()), grads,
+                      (torch.cuda.max_memory_allocated() - base) / 1e9)
+        del loss, grads
+    loss_rel = abs(out[True][0] / out[False][0] - 1)
+    worst = max(float((a.float() - b.float()).norm()
+                      / max(float(b.float().norm()), 1e-30))
+                for a, b in zip(out[True][1], out[False][1]))
+    equal = all(torch.equal(a, b) for a, b in zip(out[True][1],
+                                                   out[False][1]))
+    log(f"(d) remat on vs off, full width, 4 layers: loss {out[True][0]!r} "
+        f"vs {out[False][0]!r} (relative {loss_rel:.3g}), worst gradient "
+        f"relative L2 {worst:.3g}, bit-equal {equal}; peak memory above "
+        f"the params: on {out[True][2]:.3f} GB, off {out[False][2]:.3f} GB")
+    assert loss_rel <= REMAT_LOSS_RTOL and worst <= REMAT_GRAD_RL2, \
+        (loss_rel, worst)
+    return {"loss_rel": loss_rel, "grad_rl2": worst, "bit_equal": equal,
+            "peak_gb_on": out[True][2], "peak_gb_off": out[False][2]}
+
+
+def _train_int8(torch):
+    """(e) Full width, depth 2, int8 AdamW moments: 15 steps, finite
+    losses, the last three below the first three."""
+    import math
+    from repro_torch import tree
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    cfg = _full(2)
+    opt = adamw.AdamWConfig(lr=INT8_LR, state_dtype="int8")
+    params, st, pipe = _setup(torch, cfg, opt)
+    moment = sum(t.numel() * t.element_size() for t in tree.leaves(
+        [st.mu, st.nu, st.mu_scale, st.nu_scale]))
+    n = sum(p.numel() for p in tree.leaves(params))
+    losses = []
+    for s in range(INT8_STEPS):
+        params, st, m = steps.train_step(cfg, opt, params, st,
+                                         pipe.device_batch_at(s))
+        losses.append(float(m["loss"]))
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    log(f"(e) int8 moments, full width, 2 layers, {INT8_STEPS} steps at lr "
+        f"{INT8_LR}: losses {[round(x, 4) for x in losses]}; first three "
+        f"{first:.4f}, last three {last:.4f}; moments {moment / 1e9:.3f} GB "
+        f"for {n / 1e9:.3f} B params ({moment / n:.3f} bytes a param; fp32 "
+        f"moments 8)")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert last < first, losses
+    return {"losses": losses, "moment_bytes": moment, "params": n}
+
+
+def _train_checkpoints(torch):
+    """(f) Exact resume at smoke width on the card (10 steps against 6
+    and a resume to 10), and a save -> restore round trip of full-width
+    params and AdamW state at depth 1, bit for bit; all in a temporary
+    directory removed afterwards."""
+    import os
+    import tempfile
+    from repro_torch import tree
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.configs import registry
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps, train_loop
+
+    cfg = _masked(registry.smoke_config("h2o-danube-3-4b"))
+    opt = adamw.AdamWConfig(lr=1e-3)
+
+    def tc(path, n):
+        return train_loop.TrainConfig(steps=n, ckpt_dir=path, ckpt_every=5,
+                                      log_every=100, global_batch=4,
+                                      seq_len=32)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full = train_loop.train(cfg, opt, tc(f"{tmp}/a", 10),
+                                device="cuda")
+        train_loop.train(cfg, opt, tc(f"{tmp}/b", 6), device="cuda")
+        assert ckpt.latest_step(f"{tmp}/b") == 6
+        res = train_loop.train(cfg, opt, tc(f"{tmp}/b", 10),
+                               device="cuda")
+    rel = abs(res["losses"][-1] / full["losses"][-1] - 1)
+    exact = res["losses"] == full["losses"][6:]
+    log(f"(f) resume at smoke width: final loss {full['losses'][-1]!r} "
+        f"straight, {res['losses'][-1]!r} resumed at 6 (relative {rel:.3g}; "
+        f"steps 7-10 bit-equal {exact})")
+    assert res["final_step"] == 10 and rel <= 1e-5, (full, res)
+
+    cfg1 = _full(1)
+    params, st, pipe = _setup(torch, cfg1, opt)
+    params, st, _ = steps.train_step(cfg1, opt, params, st,
+                                     pipe.device_batch_at(0))
+    state = {"params": params, "opt": st}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        path = ckpt.save(tmp, 1, state)
+        save_s = time.time() - t0
+        nbytes = os.path.getsize(os.path.join(path, "arrays.npz"))
+        like = tree.tree_map(torch.empty_like, state)
+        t0 = time.time()
+        got, step, _ = ckpt.restore(tmp, like, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.time() - t0
+    assert step == 1 and tree.paths(got) == tree.paths(state)
+    for a, b in zip(tree.leaves(state), tree.leaves(got)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(_bits(torch, a), _bits(torch, b))
+    n = len(tree.leaves(state))
+    log(f"(f) round trip, full width, 1 layer: {n} leaves (bf16 params, "
+        f"fp32 moments), {nbytes / 1e9:.3f} GB; save {save_s:.2f} s, "
+        f"restore {restore_s:.2f} s; bit-equal")
+    return {"resume_rel": rel, "resume_exact": exact, "bytes": nbytes,
+            "save_s": save_s, "restore_s": restore_s}
+
+
+def _train_profile(torch):
+    """A torch.profiler trace of one full-width, full-depth training step
+    (after one unprofiled step): the top device operations and the shares
+    of device time of the STE masks, the AdamW update and the matmuls.
+    Not gated."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core import masks
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    cfg = _full()
+    opt = adamw.AdamWConfig(lr=3e-4)
+    params, st, pipe = _setup(torch, cfg, opt)
+    params, st, _ = steps.train_step(cfg, opt, params, st,
+                                     pipe.device_batch_at(0))
+    batch = pipe.device_batch_at(1)
+    torch.cuda.synchronize()
+    ste, update = masks.ste_prune, adamw.update
+
+    def ste_traced(*a):
+        with record_function("train.ste_masks"):
+            return ste(*a)
+
+    def update_traced(*a):
+        with record_function("train.adamw"):
+            return update(*a)
+
+    masks.ste_prune, adamw.update = ste_traced, update_traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, st, _ = steps.train_step(cfg, opt, params, st, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        masks.ste_prune, adamw.update = ste, update
+    share = {"ste_masks": 0.0, "adamw": 0.0, "matmul": 0.0, "other": 0.0}
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        names, p = set(), e
+        while p is not None:
+            names.add(p.name)
+            p = p.cpu_parent
+        for k in e.kernels:
+            by_name[k.name] = by_name.get(k.name, 0.0) + k.duration
+            low = k.name.lower()
+            if "train.ste_masks" in names:
+                share["ste_masks"] += k.duration
+            elif "train.adamw" in names:
+                share["adamw"] += k.duration
+            elif any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass")):
+                share["matmul"] += k.duration
+            else:
+                share["other"] += k.duration
+    total = sum(share.values())
+    assert total > 0, "profile: no device time recorded"
+    # device time: the union of device activity (kernels and copies)
+    dev = sorted((e.time_range.start, e.time_range.end)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation)
+    busy, end = 0.0, dev[0][0]
+    for a, b in dev:
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    idle = max(0.0, 1 - busy / (wall * 1e6))
+    log(f"profile, one training step at full width and depth (traced): "
+        f"device time {busy / 1e3:.3f} ms over {wall * 1e3:.3f} ms wall "
+        f"(device idle share {idle:.3f}); shares of kernel time: "
+        + ", ".join(f"{k} {v / total:.3f}" for k, v in share.items()))
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  top device op (training): {us / 1e3:.3f} ms  {name[:100]}")
+    return {"device_ms": busy / 1e3, "wall_ms": wall * 1e3,
+            "idle_share": idle,
+            "shares": {k: v / total for k, v in share.items()}}
+
+
+def training_checks() -> int:
+    """Phase 10's checks (a) and (c)-(f) and the profile, run in a child
+    process of chip_smoke (so the full-depth model finds the card empty).
+    Prints one ``TRAINING {json}`` line; B1-B5 must launch no time."""
+    import torch
+    from repro_torch.kernels import ops
+
+    torch.cuda.init()
+    before = ops.launch_counts()
+    out = {}
+    for key, fn in (("a", _train_card_vs_cpu), ("c", _train_ste),
+                    ("d", _train_remat), ("e", _train_int8),
+                    ("f", _train_checkpoints), ("profile", _train_profile)):
+        t0 = time.time()
+        out[key] = fn(torch)
+        torch.cuda.empty_cache()
+        log(f"  ({key}) {time.time() - t0:.1f} s")
+    assert ops.launch_counts() == before, "a B1-B5 kernel ran in training"
+    log("B1-B5 launches in training: 0 (counters unchanged)")
+    print("TRAINING " + json.dumps(out), flush=True)
+    return 0
+
+
+def _child(cmd, label, timeout):
+    """Run ``cmd`` from the checkout's root; its output, prefixed; fail
+    unless it exits 0.  Returns its standard output."""
+    import os
+    r = subprocess.run(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                       stderr=subprocess.STDOUT, text=True, timeout=timeout,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    for line in r.stdout.splitlines():
+        log(f"  [{label}] {line}")
+    assert r.returncode == 0, f"{label} exited {r.returncode}"
+    return r.stdout
+
+
+def phase_training(torch, card):
+    """Phase 10: single-device training (the STE-masked 6:8 launcher at
+    full width and depth, in a child process), and the checks (a), (c)-(f)
+    and the profile in another (``training_checks``)."""
+    import gc
+    import math
+    import statistics
+    t0 = time.time()
+    gc.collect()  # engines and graphs of earlier phases in cycles
+    torch.cuda.empty_cache()
+    log(f"== training: checks (a) card == CPU, (c) STE, (d) remat, (e) int8 "
+        f"state, (f) checkpoints, a profiled step; device memory here: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved ==")
+    text = _child([sys.executable, "-c",
+                   "import sys, chip_smoke; "
+                   "sys.exit(chip_smoke.training_checks())"],
+                  "training checks", TRAIN_TIMEOUT)
+    out = json.loads(next(line for line in text.splitlines()
+                          if line.startswith("TRAINING "))[len("TRAINING "):])
+    log(f"== training: python -m repro_torch.launch.train --arch "
+        f"h2o-danube-3-4b --sparse 6 8 --sparse-mode masked, full width and "
+        f"depth, bf16, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} at "
+        f"lr {TRAIN_LR} ==")
+    text = _child([sys.executable, "-m", "repro_torch.launch.train",
+                   "--arch", "h2o-danube-3-4b", "--sparse", "6", "8",
+                   "--sparse-mode", "masked", "--global-batch",
+                   str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--steps",
+                   str(TRAIN_STEPS), "--lr", str(TRAIN_LR), "--log-every",
+                   "5"], "launch.train", TRAIN_TIMEOUT)
+    run = json.loads(next(line for line in reversed(text.splitlines())
+                          if line.startswith("[launch.train] {"))
+                     [len("[launch.train] "):])
+    losses = run["losses"]
+    assert len(losses) == TRAIN_STEPS, losses
+    assert all(math.isfinite(x) for x in losses), losses
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    assert last < first - 0.1, (first, last, losses)
+    out["launcher"] = dict(run, first5=first, last5=last)
+    out["seconds"] = time.time() - t0
+    log(f"training at full width and depth: losses first five {first:.4f}, "
+        f"last five {last:.4f}; median step {run['median_step_ms']:.3f} ms "
+        f"after the first, {run['tokens_per_s']:.1f} tokens/s, peak device "
+        f"memory {run['peak_device_gb']:.2f} GB ({card})")
+    log(f"phase 10 (training): {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2774,6 +3241,7 @@ def main() -> int:
     families = phase_families(torch, card)
     torch.cuda.empty_cache()
     audio_vision = phase_audio_vision(torch, card)
+    training = phase_training(torch, card)
     prof, tok_s = slided["profile"], slided["tok_s"]
     for label, pr in prof.items():
         log(f"slided decode step, {label}: {pr['step_ms']:.3f} ms, host "
@@ -2793,6 +3261,12 @@ def main() -> int:
         f"{features['nodes'] or 'not measured'} ({card})")
     report_families(families, card)
     report_audio_vision(audio_vision, card)
+    pr = training["profile"]
+    log(f"training step (full width and depth, traced): device "
+        f"{pr['device_ms']:.3f} ms of {pr['wall_ms']:.3f} ms wall, idle "
+        f"share {pr['idle_share']:.3f}; kernel time shares " + ", ".join(
+            f"{k} {v:.3f}" for k, v in pr["shares"].items())
+        + f"; phase 10 {training['seconds']:.1f} s ({card})")
 
     def entry(name, source, replaces, n, err, st):
         return {"name": name, "route": "cuda",

@@ -12,7 +12,10 @@ One config object selects the execution path for every projection:
                      CPU); the 'none' recipe runs ``slide.slided_matmul``
                      in plain torch, as the JAX package runs it outside
                      any Pallas kernel
-  mode='masked'      not ported yet (ROADMAP A.6, STE training)
+  mode='masked'      training-time STE magnitude masking (sparse-aware
+                     training): the pruned weights forward, dense
+                     gradients back (``masks.ste_prune``), through the
+                     same plain matmul as 'dense'
 
 Precision composes through ``recipe`` (``precision.PrecisionRecipe``).
 On the compressed path the per-token activation quantization stays plain
@@ -27,18 +30,14 @@ from typing import Any
 import torch
 
 from .patterns import Pattern, SlideDecomposition, TWO_FOUR
-from . import slide, compressed as comp, packer, precision, quant
+from . import slide, compressed as comp, masks, packer, precision, quant
 from .precision import PrecisionRecipe
-
-_NOT_PORTED = {
-    "masked": "ROADMAP A.6 (STE-masked training stack)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
 class SparsityConfig:
     pattern: tuple[int, int] | None = None  # (Z, L), e.g. (6, 8)
-    mode: str = "dense"  # dense | compressed | slided (masked not ported)
+    mode: str = "dense"  # dense | masked | compressed | slided
     act_quant: str | None = None  # legacy precision axis (None | 'int8')
     recipe: PrecisionRecipe | str | None = None
     # fuse the MLP SiLU into the gate projection's matmul epilogue
@@ -64,10 +63,7 @@ DENSE = SparsityConfig()
 
 
 def _check_mode(cfg: SparsityConfig) -> None:
-    if cfg.mode in _NOT_PORTED:
-        raise NotImplementedError(
-            f"mode={cfg.mode!r} is not ported yet: {_NOT_PORTED[cfg.mode]}")
-    if cfg.mode not in ("dense", "compressed", "slided"):
+    if cfg.mode not in ("dense", "masked", "compressed", "slided"):
         raise ValueError(f"unknown mode {cfg.mode}")
 
 
@@ -87,11 +83,11 @@ def prepare(params: dict[str, Any], cfg: SparsityConfig) -> dict[str, Any]:
     ('compressed', nibble-packed for 'w4'), or for 'slided' store Phi(W)
     as the fused kernel's 2:4 operand (``sp_values``, ``sp_meta``;
     ``fused_slide_matmul.sparse_operand``) under a quantized recipe and
-    as the dense slided matrix ``w_slided`` under 'none'.  'dense' passes
-    through unchanged."""
+    as the dense slided matrix ``w_slided`` under 'none'.  'dense' and
+    'masked' pass through unchanged."""
     _check_mode(cfg)
     dec = cfg.decomposition()
-    if cfg.mode == "dense" or dec is None:
+    if cfg.mode in ("dense", "masked") or dec is None:
         return dict(params)
     rec = cfg.recipe
     w = packer.prune_to_pattern(params["w"], dec.source)
@@ -129,12 +125,15 @@ def apply(params: dict[str, Any], x: torch.Tensor, cfg: SparsityConfig,
     _check_mode(cfg)
     dec = cfg.decomposition()
     rec = cfg.recipe
-    if cfg.mode == "dense" or dec is None:
+    if cfg.mode in ("dense", "masked") or dec is None:
+        w = params["w"]
+        if cfg.mode == "masked" and dec is not None:
+            w = masks.ste_prune(w, dec.source)
         if rec.quantized:
             y = quant.matmul_dequant(rec.quantize_act(x),
-                                     rec.quantize_weight(params["w"]), x.dtype)
+                                     rec.quantize_weight(w), x.dtype)
         else:
-            y = x @ params["w"].to(x.dtype).T
+            y = x @ w.to(x.dtype).T
         return ref.apply_activation(y, activation) if activation else y
 
     if not _prepared(params, cfg):

@@ -11,7 +11,9 @@ are the plain chunked SDPA, as in JAX.  As in JAX, a decode step
 recomputes each layer's cross K/V from ``enc_out`` (:func:`_cross_kv`).
 The parameter tree keeps JAX's keys, with the ``[L, ...]`` encoder and
 decoder stacks split into lists of per-layer dicts.  Training
-(``lm_loss``) is not ported yet (ROADMAP A.6).
+(:func:`lm_loss`) runs the encoder and the decoder with autograd on,
+each layer checkpointed under ``cfg.remat`` as JAX's scans are; the
+serving entry points keep ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import linear as sl
-from . import attention, layers
+from . import attention, layers, transformer
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -81,22 +83,33 @@ def init(cfg: ModelConfig, gen: torch.Generator) -> dict[str, Any]:
         "lm_head": sl.init(gen, cfg.d_model, cfg.vocab_size, dt)}
 
 
-@torch.no_grad()
-def encode(params, cfg: ModelConfig, audio_embeds) -> torch.Tensor:
-    """audio_embeds: [B, T, D] (conv-frontend stub output) -> [B, T, D]."""
+def _enc_layer(cfg: ModelConfig, lp, x):
+    sp = cfg.sparsity
+    a, _ = attention.apply(lp["attn"], _spec(cfg, False),
+                           layers.rmsnorm(lp["attn_norm"], x, cfg.norm_eps),
+                           None, sp)
+    x = x + a
+    return x + _mlp(lp["mlp"], layers.rmsnorm(lp["mlp_norm"], x,
+                                              cfg.norm_eps), sp)
+
+
+def _encode(params, cfg: ModelConfig, audio_embeds) -> torch.Tensor:
+    """The encoder, autograd on: each layer checkpointed under
+    ``cfg.remat`` (``transformer.remat``)."""
     _, t, d = audio_embeds.shape
     dt = _dtype(cfg)
     pos = layers.sinusoidal_positions(t, d, audio_embeds.device).to(dt)
     x = audio_embeds.to(dt) + pos[None]
-    sp, spec = cfg.sparsity, _spec(cfg, False)
     for lp in params["encoder"]:
-        a, _ = attention.apply(lp["attn"], spec,
-                               layers.rmsnorm(lp["attn_norm"], x, cfg.norm_eps),
-                               None, sp)
-        x = x + a
-        x = x + _mlp(lp["mlp"], layers.rmsnorm(lp["mlp_norm"], x,
-                                               cfg.norm_eps), sp)
+        x = (transformer.remat(_enc_layer, cfg, lp, x) if cfg.remat
+             else _enc_layer(cfg, lp, x))
     return layers.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+@torch.no_grad()
+def encode(params, cfg: ModelConfig, audio_embeds) -> torch.Tensor:
+    """audio_embeds: [B, T, D] (conv-frontend stub output) -> [B, T, D]."""
+    return _encode(params, cfg, audio_embeds)
 
 
 def _cross_kv(lp, cfg: ModelConfig, enc_out):
@@ -119,6 +132,35 @@ def _cross_mlp(lp, cfg, h, enc_out):
     h = h + c
     return h + _mlp(lp["mlp"], layers.rmsnorm(lp["mlp_norm"], h, cfg.norm_eps),
                     sp)
+
+
+def _dec_layer(cfg: ModelConfig, lp, x, positions, enc_out):
+    """A decoder layer over a whole sequence, no cache (training)."""
+    a, _ = attention.apply(
+        lp["self_attn"], _spec(cfg, True),
+        layers.rmsnorm(lp["self_norm"], x, cfg.norm_eps), positions,
+        cfg.sparsity)
+    return _cross_mlp(lp, cfg, x + a, enc_out)
+
+
+def lm_loss(params, cfg: ModelConfig, tokens, labels, audio_embeds):
+    """Next-token cross entropy of the decoder over tokens/labels [B, S],
+    given the audio frames [B, T, D]; the decoder's layers checkpointed
+    under ``cfg.remat`` and the LM head sequence-chunked
+    (``transformer.chunked_xent``)."""
+    enc_out = _encode(params, cfg, audio_embeds)
+    b, s = tokens.shape
+    dt = _dtype(cfg)
+    x = layers.embed(params["embed"], tokens).to(dt)
+    x = x + layers.sinusoidal_positions(s, cfg.d_model,
+                                        tokens.device).to(dt)[None]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device)[None].expand(b, s)
+    for lp in params["decoder"]:
+        x = (transformer.remat(_dec_layer, cfg, lp, x, positions, enc_out)
+             if cfg.remat else _dec_layer(cfg, lp, x, positions, enc_out))
+    h = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return transformer.chunked_xent(params["lm_head"], cfg, h, labels)
 
 
 def _decoder_pass(params, cfg: ModelConfig, x, positions, enc_out, cache,

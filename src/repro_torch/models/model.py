@@ -30,6 +30,25 @@ def draw_ssm_wo(params, cfg: ModelConfig, gen: torch.Generator):
     return transformer.draw_ssm_wo(params, cfg, gen)
 
 
+def _extra_embeds(cfg: ModelConfig, batch):
+    if cfg.frontend == "audio":
+        return batch["audio_embeds"]
+    if cfg.frontend == "vision":
+        return batch.get("vision_embeds")
+    return None
+
+
+def loss_fn(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Mean next-token cross entropy of a training batch {'tokens',
+    'labels' [B, S], and 'audio_embeds' or 'vision_embeds' where the
+    frontend takes them}, with autograd on."""
+    if cfg.is_encoder_decoder:
+        return encdec.lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                              batch["audio_embeds"])
+    return transformer.lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                               _extra_embeds(cfg, batch))
+
+
 def prefill(params, cfg: ModelConfig, tokens, max_len: int | None = None,
             extra_embeds=None):
     if cfg.is_encoder_decoder:

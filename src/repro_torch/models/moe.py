@@ -21,10 +21,14 @@ graphed == eager and slided == compressed gates need:
 Nothing here reads a device value on the host (no ``nonzero``, boolean
 indexing or ``.item()``), so a step that runs it is CUDA-graph capturable.
 
-The expert stacks are pruned to the pattern once, at load
+For serving, the expert stacks are pruned to the pattern once, at load
 (``serve_loop.pack_params`` stores ``{"pruned": ...}``); JAX prunes them
 on every call, and pruning is idempotent, so the values are the same.
-The training-only auxiliary load-balance loss is not ported (ROADMAP A.6).
+In ``mode="masked"`` (training) each stack is STE-pruned on every call
+from its live weights (``masks.ste_prune``), never read from that cache,
+which an optimizer step would leave stale.  ``aux_load_balance_loss`` is
+ported as a function; JAX's ``loss_fn`` adds it to no loss, nor does the
+port's.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import packer
+from repro_torch.core import masks, packer
 from repro_torch.core.linear import SparsityConfig
 
 
@@ -87,9 +91,11 @@ def prune_stacks(params, sp_cfg: SparsityConfig):
 
 def _expert_weights(p, sp_cfg: SparsityConfig) -> torch.Tensor:
     """Stacked [Ep, M, K] expert weights under the configured sparsity."""
+    dec = sp_cfg.decomposition()
+    if dec is not None and sp_cfg.mode == "masked":
+        return masks.ste_prune(p["w"], dec.source)
     if "pruned" in p:
         return p["pruned"]
-    dec = sp_cfg.decomposition()
     if dec is not None and sp_cfg.mode in ("slided", "compressed"):
         return packer.prune_to_pattern(p["w"], dec.source)
     return p["w"]
@@ -172,3 +178,16 @@ def apply(params, spec: MoESpec, x: torch.Tensor,
     for j in range(k):
         y = y + picked[:, :, j]
     return y.reshape(b, s, d)
+
+
+def aux_load_balance_loss(logits: torch.Tensor, top_idx: torch.Tensor,
+                          num_experts: int) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss over router logits
+    [G, Tg, E] and the top-k expert ids [G, Tg, K]: E times the dot of
+    each expert's share of first choices and its mean router
+    probability."""
+    probs = torch.softmax(logits, dim=-1)
+    first = torch.nn.functional.one_hot(top_idx[..., 0].long(), num_experts)
+    density = first.to(torch.float32).mean(dim=(0, 1))
+    density_proxy = probs.mean(dim=(0, 1))
+    return num_experts * torch.sum(density * density_proxy)

@@ -14,12 +14,21 @@ vision embeddings are summed into the prompt's first rows
 The paged cache holds, per attention layer, a page pool shared by every
 sequence and, per SSM layer, O(1) recurrent state for each of the
 engine's ``max_batch`` slots; both are updated in place.
+
+Training (:func:`lm_loss`) runs the same units with autograd on:
+``backbone`` checkpoints each unit under ``cfg.remat`` and, with
+``cfg.remat_2level``, each segment of s2 units as well (JAX's two-level
+remat scan), and :func:`chunked_xent` computes the LM head and the loss
+one checkpointed sequence chunk at a time.  The serving entry points
+below keep ``torch.no_grad``.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -51,6 +60,27 @@ def moe_spec(cfg: ModelConfig) -> moe.MoESpec:
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _remat_split(u: int) -> tuple[int, int]:
+    """Factor u = s1 * s2 with s1 + s2 minimal (2-level remat segments)."""
+    best = (1, u)
+    d = 1
+    while d * d <= u:
+        if u % d == 0 and d + u // d < sum(best):
+            best = (d, u // d)
+        d += 1
+    return best
+
+
+def remat(fn, *args):
+    """``fn(*args)``, rematerialized in the backward when autograd records
+    (``torch.utils.checkpoint``, non-reentrant, so checkpoints nest); a
+    plain call otherwise.  Recomputing changes no value."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def _layers(cfg: ModelConfig):
@@ -127,6 +157,91 @@ def embed_tokens(params, cfg: ModelConfig, tokens, extra_embeds=None):
     if extra_embeds is not None:
         x[:, :extra_embeds.shape[1]] += extra_embeds.to(x.dtype)
     return x
+
+
+# -------------------------------------------------------------- training
+def _unit(cfg: ModelConfig, unit_params, x, positions):
+    """One unit (``len(unit_pattern)`` layers) over a whole sequence, no
+    cache: JAX's ``_apply_unit`` in training."""
+    sp = cfg.sparsity
+    for i, (kind, is_moe) in enumerate(zip(cfg.unit_pattern,
+                                           cfg.moe_pattern)):
+        lp = unit_params[f"layer_{i}"]
+        h = layers.rmsnorm(lp["pre_norm"], x, cfg.norm_eps)
+        if kind == "ssm":
+            y, _ = ssm.apply(lp["mixer"], ssm_spec(cfg), h, sp)
+        else:
+            y, _ = attention.apply(lp["mixer"], attn_spec(cfg, kind), h,
+                                   positions, sp)
+        x = _ffn(lp, cfg, x + y, is_moe)
+    return x
+
+
+def backbone(params, cfg: ModelConfig, x, positions):
+    """Embedded inputs [B, S, D] -> final hidden [B, S, D] (no cache).
+
+    With ``cfg.remat`` each unit is checkpointed; with ``remat_2level``
+    the U units run as s1 segments of s2 (:func:`_remat_split`), each
+    segment checkpointed too, so the backward keeps ~s1 + s2 residual
+    carries instead of U (JAX's two-level remat scan)."""
+    units = params["units"]
+
+    def run(xx, segment):
+        for up in segment:
+            xx = (remat(_unit, cfg, up, xx, positions) if cfg.remat
+                  else _unit(cfg, up, xx, positions))
+        return xx
+
+    s1, s2 = (_remat_split(cfg.num_units)
+              if cfg.remat and cfg.remat_2level else (1, cfg.num_units))
+    if s1 == 1:
+        x = run(x, units)
+    else:
+        for i in range(s1):
+            x = remat(run, x, units[i * s2:(i + 1) * s2])
+    return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def _chunk_loss(lm_head, cfg: ModelConfig, hc, lc):
+    """(summed NLL, valid count) of one sequence chunk; labels < 0 are
+    masked out."""
+    logits = layers.unembed(lm_head, hc, cfg.sparsity).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1,
+                          torch.clamp_min(lc, 0).long()[..., None])[..., 0]
+    valid = (lc >= 0).to(torch.float32)
+    return ((lse - picked) * valid).sum(), valid.sum()
+
+
+def chunked_xent(lm_head, cfg: ModelConfig, h, labels):
+    """Sequence-chunked LM head + next-token cross entropy: each chunk's
+    [B, chunk, V] logits are recomputed in the backward (checkpointed),
+    so no full-sequence fp32 logits are ever held.  Returns the mean NLL
+    over labels >= 0, ``total / max(count, 1)``."""
+    _, s, _ = h.shape
+    chunk = min(cfg.logits_chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    total = count = None
+    for c in range(0, s + pad, chunk):
+        nll, n = remat(_chunk_loss, lm_head, cfg, h[:, c:c + chunk],
+                       labels[:, c:c + chunk])
+        total = nll if total is None else total + nll
+        count = n if count is None else count + n
+    return total / torch.clamp_min(count, 1.0)
+
+
+def lm_loss(params, cfg: ModelConfig, tokens, labels, extra_embeds=None):
+    """Next-token cross entropy of a batch (tokens, labels [B, S]) with
+    the sequence-chunked LM head; gradients flow to every float leaf."""
+    x = embed_tokens(params, cfg, tokens, extra_embeds)
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device)[None].expand(b, s)
+    h = backbone(params, cfg, x, positions)
+    return chunked_xent(params["lm_head"], cfg, h, labels)
 
 
 # ------------------------------------------------------------- one-shot
