@@ -145,8 +145,30 @@ Phases (any failed check exits nonzero):
    losses, the mean of the last five below the first five's by 0.1;
    median step ms, tokens/s and peak device memory.  The phase prints
    its time.
-11. a ``kernels`` JSON line (the five kernels, launches of the
-   h2o-danube-3-4b runs), the card line, and the final result line.
+11. tensor parallelism (ROADMAP A.1): B1 and B3 int8 bit-equal at one
+   rank's shard shapes at tp = 2, B3 given ``act_absmax`` (int8, w4; wo
+   3840 x 1920 and w_down 3840 x 5120 at R 1, 4, 128) bit-equal to its
+   plain version and, given the rows' own absmax, to B3 without it, B2
+   at H = 16 over KVH = 4; then two gloo ranks sharing the card
+   (``tp_rank``), each drawing phase 4's seeded weights once and keeping
+   its shards, serve phase 5's traffic eager at tp = 2, compressed and
+   slided: the ranks' streams identical and equal to phases 4 and 5's
+   tp = 1 eager streams (or each divergence a tie within rounding at the
+   tp = 1 logits), the last-prefill logits within TP_RL2 of tp = 1's
+   beside two planted faults read in the same run on the compressed
+   engine (one rank leaves one layer's w_down unreduced; one rank
+   quantizes its row-parallel projections with its local absmax) that
+   must exceed it, B1 or B3 (and
+   B3's act_absmax instance, counted on its own) and B2 launched in
+   ``run()``, each rank's linears half of tp = 1's, 4 KV heads a pool,
+   the pages balanced; the launcher at TP_LAUNCH_LAYERS layers in fp32
+   (``--tp 2 --dist-backend gloo`` streams == ``--tp 1``;
+   ``--dist-backend nccl`` refused on one card); tp = 2 vs tp = 1 eager
+   decode tok/s, the
+   collectives per decode step and the phase's time;
+12. a ``kernels`` JSON line (the five kernels, launches of the
+   h2o-danube-3-4b runs, and B3's act_absmax instance with the launches
+   of phase 11's slided run), the card line, and the final result line.
 
 It imports neither JAX nor the JAX package, and prints every table it
 measures on standard output.
@@ -956,8 +978,13 @@ def phase_b2(torch, timer):
 # ----------------------------------------------------------------- phase 4
 PLENS, NEW_TOKENS = [53, 117, 211, 298], 32
 FLOAT_LAYERS = 8               # depth of the float-recipe gate's model
-# one CUDA graph per step of an engine with speculation off
-ONE_EACH = {"prefill": 1, "decode": 1, "cow": 1}
+# one CUDA graph per step of an engine with speculation off: a stack with
+# a page pool (any attention layer) has a COW step too
+
+
+def _one_each(cfg):
+    pool = any(kind != "ssm" for kind in cfg.unit_pattern)
+    return {"prefill": 1, "decode": 1, **({"cow": 1} if pool else {})}
 PROFILE_STEPS = 8              # decode steps in each profiler window
 
 
@@ -972,12 +999,24 @@ def _counters():
             "quant_matmul": quant_matmul}
 
 
-def _engine_setup(torch, mode, recipe="int8", dtype=None, num_layers=None):
+def _linear_bytes(params):
+    """Bytes of a danube tree's linears (every unit's mixer and FFN
+    projections and the lm_head)."""
+    return sum(t.numel() * t.element_size()
+               for u in params["units"] for lp in u.values()
+               for blk in ("mixer", "ffn") for lin in lp[blk].values()
+               for t in lin.values()) + sum(
+        t.numel() * t.element_size() for t in params["lm_head"].values())
+
+
+def _engine_setup(torch, mode, recipe="int8", dtype=None, num_layers=None,
+                  keep_raw=False):
     """h2o-danube-3-4b at full width, 6:8 in ``mode``, fused attention,
     packed from the seed-0 init (bf16 activations and KV pages as
     registered, or ``dtype`` for both; the registered 24 layers, or
     ``num_layers``); the 4 staggered prompts drawn from the same
-    generator.  Returns (cfg, params, prompts, ecfg)."""
+    generator.  Returns (cfg, params, prompts, ecfg), and with ``keep_raw``
+    the unpacked draw fifth."""
     import dataclasses
     from repro_torch.configs import registry
     from repro_torch.core.linear import SparsityConfig
@@ -995,13 +1034,12 @@ def _engine_setup(torch, mode, recipe="int8", dtype=None, num_layers=None):
                                 fused_attention=True))
     t0 = time.time()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = serve_loop.pack_params(M.init(cfg, gen), cfg)
+    raw = M.init(cfg, gen)
+    params = serve_loop.pack_params(raw, cfg)
+    if not keep_raw:
+        del raw
     torch.cuda.synchronize()
-    packed = sum(t.numel() * t.element_size()
-                 for u in params["units"] for lp in u.values()
-                 for blk in ("mixer", "ffn") for lin in lp[blk].values()
-                 for t in lin.values()) + sum(
-        t.numel() * t.element_size() for t in params["lm_head"].values())
+    packed = _linear_bytes(params)
     log(f"init + pack: {time.time() - t0:.1f} s; {cfg.num_layers} layers, "
         f"{mode} {recipe} linears {packed / 1e9:.2f} GB; device memory "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
@@ -1010,16 +1048,19 @@ def _engine_setup(torch, mode, recipe="int8", dtype=None, num_layers=None):
     ecfg = serve_loop.EngineConfig(max_batch=4, page_size=16, num_pages=128,
                                    max_seq_len=max(PLENS) + NEW_TOKENS,
                                    prefill_chunk=PREFILL_CHUNK)
+    if keep_raw:
+        return cfg, params, prompts, ecfg, raw
     return cfg, params, prompts, ecfg
 
 
 def _sync_free(torch, eng, label):
     """Dispatch under ``torch.cuda.set_sync_debug_mode("error")`` one
-    prefill chunk, one decode step, a COW call, a resumed prefill chunk
-    (start > 0) and, when ``eng`` speculates, a verify step, each step's
-    ids' copy to the host queued too: any host synchronization on the
-    step path raises.  The dummy inputs write only the spare page.  The
-    COW call counts one copy in ``eng.stats``."""
+    prefill chunk, one decode step, a COW call (where the stack has a page
+    pool), a resumed prefill chunk (start > 0) and, when ``eng``
+    speculates, a verify step, each step's ids' copy to the host queued
+    too: any host synchronization on the step path raises.  The dummy
+    inputs write only the spare page.  The COW call counts one copy in
+    ``eng.stats``."""
     import numpy as np
     ec = eng.ecfg
     ptab = eng.kv.page_table_array()
@@ -1030,7 +1071,8 @@ def _sync_free(torch, eng, label):
         eng._prefill(np.zeros((1, ec.prefill_chunk)), ptab[:1], 0, 0)
         eng._decode(np.zeros(b), ptab, np.zeros(b), np.zeros(b))
         eng._to_host(eng._steps["decode"].out[0])
-        eng._run_cow([(0, ec.num_pages)])
+        if "cow" in eng.captures:
+            eng._run_cow([(0, ec.num_pages)])
         eng._prefill(np.zeros((1, ec.prefill_chunk)), ptab[:1],
                      3 * ec.page_size, 0)
         if ec.speculate:
@@ -1040,9 +1082,11 @@ def _sync_free(torch, eng, label):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    log(f"sync check {label}: a prefill chunk, a decode step, a COW call, "
-        f"a resumed prefill chunk{' and a verify step' if ec.speculate else ''}"
-        " ran under set_sync_debug_mode('error'), no host synchronization")
+    cow = " a COW call," if "cow" in eng.captures else ""
+    log(f"sync check {label}: a prefill chunk, a decode step,{cow} a "
+        f"resumed prefill chunk"
+        f"{' and a verify step' if ec.speculate else ''} ran under "
+        "set_sync_debug_mode('error'), no host synchronization")
 
 
 def _sync_check_bites(torch):
@@ -1066,43 +1110,73 @@ def _sync_check_bites(torch):
 def _engine_pair(torch, cfg, params, ecfg):
     """An eager engine (private ``_eager``: the steps run op by op) and a
     graphed one (each step captured once in ``warmup``) on the same
-    weights, both warmed up and put through the sync check."""
+    weights, both warmed up and put through the sync check.  No capture
+    may warn of an empty graph (a step with nothing to record)."""
+    import warnings
     from repro_torch.runtime import serve_loop
     eager = serve_loop.ServeEngine(params, cfg, ecfg, device="cuda",
                                    _eager=True)
     log(f"warmup eager: {eager.warmup():.2f} s")
     graphed = serve_loop.ServeEngine(params, cfg, ecfg, device="cuda")
-    log(f"warmup graphed (eager pass + capture): {graphed.warmup():.2f} s; "
-        f"captures {graphed.captures}")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t = graphed.warmup()
+    graph_warnings = [str(w.message) for w in caught
+                      if "graph" in str(w.message).lower()
+                      and "empty" in str(w.message).lower()]
+    log(f"warmup graphed (eager pass + capture): {t:.2f} s; captures "
+        f"{graphed.captures}; empty-graph warnings {len(graph_warnings)}")
+    assert not graph_warnings, graph_warnings
     assert set(eager.captures.values()) == {0}, eager.captures
-    assert graphed.captures == ONE_EACH, graphed.captures
+    assert graphed.captures == _one_each(cfg), graphed.captures
     _sync_free(torch, eager, "eager")
     _sync_free(torch, graphed, "graphed")
     return eager, graphed
 
 
-def _serve_reqs(eng, reqs, split=False):
+def _note_rows(e, rows, state, whole=None):
+    """``on_step`` bookkeeping of the logits each decode step sampled from:
+    the decode step's output row of each slot that decoded in it, appended
+    per request to ``rows`` (``whole`` gathers vocab-sharded logits)."""
+    if e.sched.stats.decode_steps > state["steps"]:
+        logits = e._steps["decode"].out[1]
+        if whole is not None:
+            logits = whole(logits)
+        for rid, slot in state["decoding"]:
+            rows.setdefault(rid, []).append(logits[slot].clone())
+        state["steps"] = e.sched.stats.decode_steps
+    state["decoding"] = [(s.rid, s.slot) for s in e.sched.running
+                         if not s.prefilling and not s.done]
+
+
+def _serve_reqs(eng, reqs, split=False, rows=None):
     """Submit ``reqs`` [(rid, prompt, arrival)], NEW_TOKENS each, and run
     with every kernel count set to 0 just before ``run()``; the pages must
     balance after it.  Returns (completions of these rids, launches read
     just after, split or None).  With ``split`` each step ends in a
     synchronize, a step that advanced the scheduler's decode count is a
     decode (or verify) step and one that did not a prefill step, and
-    split is {"prefill": seconds, "decode": seconds, "decode_steps": n}."""
+    split is {"prefill": seconds, "decode": seconds, "decode_steps": n}.
+    With a dict ``rows`` each request's decode-step logits rows are kept
+    there (``_note_rows``)."""
     import torch
     counters = _counters()
     for rid, p, arrival in reqs:
         eng.submit(p, NEW_TOKENS, rid=rid, arrival=arrival)
     marks = []
+    state = {"decoding": [], "steps": eng.sched.stats.decode_steps}
 
     def on_step(e, k):
-        torch.cuda.synchronize()
-        marks.append((time.perf_counter(), e.sched.stats.decode_steps))
+        if split:
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), e.sched.stats.decode_steps))
+        if rows is not None:
+            _note_rows(e, rows, state)
 
     for mod in counters.values():
         mod.reset_counts()
     t_prev, d_prev = time.perf_counter(), eng.sched.stats.decode_steps
-    out = eng.run(on_step=on_step if split else None)
+    out = eng.run(on_step=on_step if split or rows is not None else None)
     launches = {name: mod.launch_count() for name, mod in counters.items()}
     part = None
     if split:
@@ -1118,11 +1192,11 @@ def _serve_reqs(eng, reqs, split=False):
     return {rid: out[rid] for rid, _, _ in reqs}, launches, part
 
 
-def _engine_run(eng, prompts, label, split=True):
+def _engine_run(eng, prompts, label, split=True, rows=None):
     """Serve the prompts, staggered, through ``_serve_reqs``; every
     request must finish OK.  Returns (completions, launches)."""
     out, launches, part = _serve_reqs(
-        eng, [(i, p, 2 * i) for i, p in enumerate(prompts)], split)
+        eng, [(i, p, 2 * i) for i, p in enumerate(prompts)], split, rows)
     s = eng.stats
     how = (f" (prefill steps {part['prefill']:.3f} s, decode steps "
            f"{part['decode']:.3f} s)" if split
@@ -1138,7 +1212,7 @@ def _hold_graphed(torch, eager, e_out, e_launches, graphed, g_out,
                   g_launches, label):
     """The graphed run equals the eager run of the same engine: streams,
     first-token logits bit for bit, and every kernel's launch count."""
-    assert graphed.captures == ONE_EACH, graphed.captures
+    assert graphed.captures == _one_each(graphed.cfg), graphed.captures
     for i, c in g_out.items():
         assert c.tokens == e_out[i].tokens, \
             f"{label} request {i}: graphed stream differs from eager"
@@ -1193,7 +1267,7 @@ def _logits_gate(torch, cfg, params, ecfg, prompts, eng, out, label,
         bad.run()
     finally:
         kops.paged_attention = orig
-    assert bad.captures == ONE_EACH, bad.captures
+    assert bad.captures == _one_each(cfg), bad.captures
 
     same, total = 0, 0
     read = {"sound": [], "short": [], "dropped": []}
@@ -1253,7 +1327,9 @@ def phase_engine(torch, card):
     _sync_check_bites(torch)
     cfg, params, prompts, ecfg = _engine_setup(torch, "compressed")
     eager, eng = _engine_pair(torch, cfg, params, ecfg)
-    e_out, e_launches = _engine_run(eager, prompts, "eager")
+    rows = {}  # the eager decode logits, phase 11's tp = 1 reference
+    e_out, e_launches = _engine_run(eager, prompts, "eager", rows=rows)
+    eager_tok_s = eager.stats.decode_tok_s
     out, launches = _engine_run(eng, prompts, "graphed")
     log(f"B1 weight tiles decompressed {smm.decompress_count()}")
     assert launches["compressed_matmul"] > 0, launches
@@ -1270,7 +1346,9 @@ def phase_engine(torch, card):
     result = {"tokens": {i: c.tokens for i, c in out.items()},
               "first_logits": {i: v.cpu() for i, v in eng.first_logits.items()},
               "tok_s": s.decode_tok_s, "pack": (cfg, params),
-              "prompts": prompts, "ecfg": ecfg}
+              "prompts": prompts, "ecfg": ecfg,
+              "eager_tok_s": eager_tok_s,
+              "rows": {i: torch.stack(v).cpu() for i, v in rows.items()}}
     return launches, result
 
 
@@ -1421,7 +1499,9 @@ def phase_slided_engine(torch, card, compressed):
         "bf16, fused attention; eager, graphed, overlapped ==")
     cfg, params, prompts, ecfg = _engine_setup(torch, "slided")
     eager, eng = _engine_pair(torch, cfg, params, ecfg)
-    e_out, e_launches = _engine_run(eager, prompts, "eager")
+    rows = {}  # the eager decode logits, phase 11's tp = 1 reference
+    e_out, e_launches = _engine_run(eager, prompts, "eager", rows=rows)
+    eager_tok_s = eager.stats.decode_tok_s
     out, launches = _engine_run(eng, prompts, "graphed")
     assert launches["fused_slided_matmul"] > 0, launches
     assert launches["paged_attention"] > 0, launches
@@ -1463,7 +1543,7 @@ def phase_slided_engine(torch, card, compressed):
         "overlapped scheduler trace differs from the sync run"
     assert a.lookahead_steps > 0, "the fast path never fired"
     assert a_launches == launches, (a_launches, launches)
-    assert overlapped.captures == ONE_EACH, overlapped.captures
+    assert overlapped.captures == _one_each(cfg), overlapped.captures
     log(f"overlapped == sync: {len(a_out)} streams and the scheduler trace "
         f"({len(eng.sched.trace)} entries) equal, launches equal")
 
@@ -1473,7 +1553,11 @@ def phase_slided_engine(torch, card, compressed):
     tok = _timed_turns(torch, {"eager": eager, "graphed": eng,
                                "overlapped": overlapped}, prompts, want, card)
     return launches, {"profile": prof, "tok_s": tok, "pack": (cfg, params),
-                      "tokens": want}
+                      "tokens": want, "eager_tok_s": eager_tok_s,
+                      "first_logits": {i: eng.first_logits[i].cpu()
+                                       for i in want},
+                      "rows": {i: torch.stack(v).cpu()
+                               for i, v in rows.items()}}
 
 
 # ----------------------------------------------------------------- phase 6
@@ -1492,7 +1576,8 @@ def _feature_engine(torch, cfg, params, ecfg, **kw):
     eng = serve_loop.ServeEngine(params, cfg, dataclasses.replace(ecfg, **kw),
                                  device="cuda")
     eng.warmup()
-    want = dict(ONE_EACH, **({"verify": 1} if eng.ecfg.speculate else {}))
+    want = dict(_one_each(eng.cfg),
+                **({"verify": 1} if eng.ecfg.speculate else {}))
     assert eng.captures == want, eng.captures
     return eng
 
@@ -1741,21 +1826,10 @@ def _divergences(torch, card, cfg, params, prompts, ecfg, new_tokens,
     log(f"warmup graphed ({label}): {eng.warmup():.2f} s")
     # the logits each decode step sampled from, per request: the decode
     # step's static output row of each slot that decoded in it
-    rows = {i: [] for i in range(len(prompts))}
-    state = {"decoding": [], "steps": 0}
-
-    def on_step(e, k):
-        if e.sched.stats.decode_steps > state["steps"]:
-            logits = e._steps["decode"].out[1]
-            for rid, slot in state["decoding"]:
-                rows[rid].append(logits[slot].clone())
-            state["steps"] = e.sched.stats.decode_steps
-        state["decoding"] = [(s.rid, s.slot) for s in e.sched.running
-                             if not s.prefilling and not s.done]
-
+    rows, state = {}, {"decoding": [], "steps": 0}
     for i, p in enumerate(prompts):
         eng.submit(p, new_tokens, rid=i, arrival=2 * i)
-    out = eng.run(on_step=on_step)
+    out = eng.run(on_step=lambda e, k: _note_rows(e, rows, state))
     assert all(c.ok and len(c.tokens) == new_tokens for c in out.values())
     eng.kv.check()
     log(f"run {label}: {eng.stats.decode_steps} decode steps in "
@@ -1767,7 +1841,7 @@ def _divergences(torch, card, cfg, params, prompts, ecfg, new_tokens,
         want, _ = serve_loop.generate(params, cfg, tok, new_tokens)
         want = want[0].tolist()
         got = out[i].tokens
-        engine_logits = [eng.first_logits[i]] + rows[i]
+        engine_logits = [eng.first_logits[i]] + rows.get(i, [])
         assert len(engine_logits) == new_tokens, len(engine_logits)
         # the one-shot logits of the first token, then at the first
         # divergent position, by the loop generate runs (its tokens held
@@ -2129,7 +2203,7 @@ def _family_overlapped(torch, arch, cfg, params, ecfg, prompts, sync_eng,
         f"{arch}: overlapped scheduler trace differs from the sync run"
     assert eng.stats.lookahead_steps > 0, f"{arch}: the fast path never fired"
     assert launches == sync_launches, (launches, sync_launches)
-    assert eng.captures == ONE_EACH, eng.captures
+    assert eng.captures == _one_each(cfg), eng.captures
     log(f"overlapped {arch}: {eng.stats.lookahead_steps} fast-path steps, "
         f"{mixed} of them with an inactive lane; streams held equal to sync "
         f"for {len(held)} of {len(out)} requests (exposed to lane garbage "
@@ -3150,7 +3224,479 @@ def phase_training(torch, card):
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+TP = 2
+TP_FAULT_LAYER = 12            # the layer whose w_down one rank leaves unreduced
+TP_RID = 100                   # first rid of the planted-fault runs
+# depth of the launcher's tp = 2 vs tp = 1 run, in fp32 (recipe none):
+# there tp = 2 moves the logits by fp32 reassociation only (~1e-6; phase
+# 7's fp32 engine read 1.5e-5 off one-shot and diverged nowhere), where
+# in bf16 int8 a one-ulp difference can flip a near-tie token
+TP_LAUNCH_LAYERS = 2
+# B1 and B3 shapes (N, K) of one rank's shard at tp = 2: the column-
+# parallel wq, wk/wv, gate/up, lm_head, and the row-parallel wo, w_down
+TP_SHAPES = [(1920, 3840), (480, 3840), (5120, 3840), (16000, 3840),
+             (3840, 1920), (3840, 5120)]
+TP_ROW_SHAPES = [(3840, 1920), (3840, 5120)]   # B3 given the act_absmax
+# ||tp = 2 - tp = 1|| / ||tp = 1|| of the last-prefill logits.  The ranks
+# sum their row-parallel partials in fp32 and round once, but a one-ulp
+# bf16 difference (that sum's reassociation, B2's split count at 4 KV
+# heads) moves an int8 step in the next linear, and over 24 layers a
+# sound tp = 2 engine read 0.0379-0.0412 on the H100; the planted faults
+# read 0.0555-0.0668 (rank 1 quantizing its row-parallel projections with
+# its local absmax) and 0.0982-0.1085 (one w_down left unreduced).  Every
+# kernel and the two-rank sum are deterministic, so the readings repeat;
+# the limit sits between, near the geometric mean of 0.0412 and 0.0555
+TP_RL2 = 0.048
+TP_TIMEOUT = 600
+
+
+def _tp_kernels(torch, timer):
+    """The kernels at one rank's shard shapes: B1 and B3 int8 bit-equal at
+    TP_SHAPES x R in {1, 4, prefill_chunk}; B3 given ``act_absmax`` (a
+    global absmax above each row's own) bit-equal to its plain version at
+    the row-parallel shapes x R in {1, 4, 128}, int8 and w4, and given the
+    rows' own absmax bit-equal to B3 without one; B2 at H = 16, KVH = 4
+    (hd 120, bf16 and int8 pools) against its split plain version.  The
+    act_absmax instance is timed beside the plain version and bf16
+    ``torch.matmul`` at R = 4 (the JSON row: one tp = 2 decode step's 24
+    wo + 24 w_down calls)."""
+    from repro_torch.core import linear as sl, packer, quant
+    from repro_torch.kernels import fused_slide_matmul as fsm, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b2 = _b2_geometry(torch, gen, 16, 4, 120, pools=("bf16", "int8"))
+    err, cases = _b13_bit_equal(torch, gen, TP_SHAPES,
+                                (1, 4, PREFILL_CHUNK))
+    log(f"B1 and B3 int8 at the tp = 2 shard shapes {TP_SHAPES} x R in "
+        f"(1, 4, {PREFILL_CHUNK}): {cases} cases bit-equal to plain")
+    row = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_s": 0.0,
+           "ops_s": 0.0}
+    e_aa, n_aa = 0.0, 0
+    for recipe in ("int8", "w4"):
+        cfg = sl.SparsityConfig(pattern=(6, 8), mode="slided", recipe=recipe)
+        rec, dec = cfg.recipe, cfg.decomposition()
+        for m, k in TP_ROW_SHAPES:
+            w = (torch.randn((m, k), generator=gen, device="cuda")
+                 * k ** -0.5).to(torch.bfloat16)
+            p = sl.prepare({"w": w}, cfg)
+            sv, sm, s_w = p["sp_values"], p["sp_meta"], p["s_w"]
+            qw = rec.quantize_weight(packer.prune_to_pattern(w, dec.source))
+            w_dense = (qw.q.float() * qw.scale).to(torch.bfloat16)
+            del w
+            for r in (1, 4, 128):
+                x = torch.randn((r, k), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                own = quant.absmax(x)
+                aa = own * (1 + torch.rand((r, 1), generator=gen,
+                                           device="cuda"))
+
+                def b3(a=aa):
+                    return fsm.fused_slided_matmul_cuda(
+                        x, sv, sm, s_w, n_fam=4, act=rec.act,
+                        packed=rec.packed_weights, out_dtype=torch.bfloat16,
+                        act_absmax=a)
+
+                def plain():
+                    return ref.slided_matmul_sparse(
+                        x, sv, sm, s_w, dec, rec, torch.bfloat16,
+                        act_absmax=aa)
+
+                n0 = fsm.act_absmax_count()
+                y = b3()
+                torch.cuda.synchronize()
+                assert fsm.act_absmax_count() == n0 + 1
+                y_ref = plain()
+                e = (y.float() - y_ref.float()).abs().max().item()
+                assert torch.equal(y, y_ref), \
+                    f"B3 act_absmax {recipe} {m}x{k} R={r}: not bit-equal ({e})"
+                none = fsm.fused_slided_matmul_cuda(
+                    x, sv, sm, s_w, n_fam=4, act=rec.act,
+                    packed=rec.packed_weights, out_dtype=torch.bfloat16)
+                assert torch.equal(b3(own), none), \
+                    f"B3 given the rows' own absmax != B3 ({m}x{k} R={r})"
+                assert not torch.equal(y, none)
+                e_aa, n_aa = max(e_aa, e), n_aa + 1
+                if recipe == "int8" and r == 4:
+                    t_k, t_l = timer.turns(b3, lambda: torch.matmul(
+                        x, w_dense.T))
+                    t_p = timer(plain, iters=3, warmup=1)
+                    nbytes = (sv.numel() + 4 * sm.numel() + 4 * m
+                              + r * k * 2 + r * m * 2 + 4 * r)
+                    ops = 2 * r * m * k * 0.75
+                    row["ms"] += 24 * t_k
+                    row["plain_ms"] += 24 * t_p
+                    row["library_ms"] += 24 * t_l
+                    row["bytes_s"] += 24 * nbytes / HBM_BYTES_S
+                    row["ops_s"] += 24 * ops / PEAK_OPS["int8"]
+                    log(f"B3 act_absmax int8 {m} {k} {r} | {t_k:.4f} "
+                        f"{t_p:.4f} {t_l:.4f} "
+                        f"{bound(nbytes, ops, 'int8')[0]:.4f} | {e:.3g}")
+            del p, sv, sm, s_w, qw, w_dense
+            torch.cuda.empty_cache()
+    row["bound_ms"] = max(row["bytes_s"], row["ops_s"]) * 1e3
+    row["bound_by"] = "bytes" if row["bytes_s"] >= row["ops_s"] \
+        else "operations"
+    log(f"B3 given act_absmax: {n_aa} cases (int8, w4 x {TP_ROW_SHAPES} x "
+        f"R in (1, 4, 128)) bit-equal to plain, and given the rows' own "
+        f"absmax bit-equal to B3 without it; one tp = 2 decode step's 48 "
+        f"row-parallel calls: kernel {row['ms']:.3f} ms, plain "
+        f"{row['plain_ms']:.3f} ms, bf16 torch.matmul "
+        f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+        f"({row['bound_by']})")
+    return {"B2": b2, **err, "B3_act_absmax": e_aa, "row": row}
+
+
+def tp_rank(root: str) -> int:
+    """One rank of phase 11 (``phase_tp`` starts two, both on cuda:0, over
+    gloo).  Phase 4's seeded full-width, full-depth weights drawn once,
+    packed compressed and slided, each packing handed to
+    ``ServeEngine(tp=2)``, which keeps this rank's shard.  Per mode:
+    phase 5's traffic served eager with every kernel count and the
+    collective count set to 0 just before ``run()``; the last-prefill
+    logits and each decode step's logits (gathered); then, on the
+    compressed engine, the same prompts once more for one token under
+    each planted fault.  Writes ``rank{r}.pt`` under ``root``."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.core import linear as sl
+    from repro_torch.core.linear import SparsityConfig
+    from repro_torch.kernels import fused_slide_matmul as fsm
+    from repro_torch.runtime import serve_loop
+    from repro_torch.sharding import dist as tdist, tp as tpmod
+
+    rank, world = tdist.init("gloo")
+    tdist.device_for(None)
+    counters = _counters()
+    # one draw packed both ways, each packing handed to its engine
+    t0 = time.time()
+    cfg, params, prompts, ecfg, raw = _engine_setup(torch, "compressed",
+                                                    keep_raw=True)
+    cfgs = {"compressed": cfg, "slided": dataclasses.replace(
+        cfg, sparsity=SparsityConfig(pattern=(6, 8), mode="slided",
+                                     recipe="int8", fused_attention=True))}
+    ecfg = dataclasses.replace(ecfg, tp=world)
+    engines, sizes = {}, {}
+    for mode, cfg in cfgs.items():
+        if params is None:
+            params = serve_loop.pack_params(raw, cfg)
+        sizes[mode] = _linear_bytes(params)
+        engines[mode] = serve_loop.ServeEngine(params, cfg, ecfg,
+                                               device="cuda")
+        params = None
+    del raw
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem = torch.cuda.memory_allocated()
+    log(f"rank {rank}: both engines loaded in {time.time() - t0:.1f} s; "
+        f"device memory {mem / 1e9:.2f} GB")
+    res = {}
+    for mode in ("compressed", "slided"):
+        eng, full = engines.pop(mode), sizes[mode]
+        shard = _linear_bytes(eng.params)
+        heads = sorted({lp["k"].shape[2] for u in eng.cache
+                        for lp in u.values() if "k" in lp})
+        log(f"rank {rank} {mode}: linears {shard / 1e9:.3f} GB of the whole "
+            f"{full / 1e9:.3f} GB ({shard / full:.4f}); pool KV heads "
+            f"{heads}")
+        eng.warmup()
+        rows, per_step = {}, []
+        state = {"decoding": [], "steps": 0, "c": 0}
+
+        def on_step(e, k):
+            if e.sched.stats.decode_steps > state["steps"]:
+                per_step.append(tpmod.collective_count() - state["c"])
+            _note_rows(e, rows, state, whole=e._whole)
+            state["c"] = tpmod.collective_count()
+
+        for i, p in enumerate(prompts):
+            eng.submit(p, NEW_TOKENS, rid=i, arrival=2 * i)
+        for mod in counters.values():
+            mod.reset_counts()
+        tpmod.reset_counts()
+        out = eng.run(on_step=on_step)
+        launches = {name: mod.launch_count() for name, mod in counters.items()}
+        act_absmax = fsm.act_absmax_count()
+        eng.kv.check()
+        pool = eng.kv.pool
+        balanced = pool.num_free + pool.num_cached == ecfg.num_pages
+        s = dataclasses.replace(eng.stats)  # before the fault runs
+        log(f"rank {rank} {mode} tp=2 eager: {s.steps} steps, "
+            f"{s.decode_steps} decode steps, {s.decode_tokens} decode tokens "
+            f"in {s.wall_s:.3f} s; {s.decode_tok_s:.2f} tok/s "
+            f"({s.decode_tok_s_per_device:.2f} per device); launches "
+            f"{launches}, B3 given act_absmax {act_absmax}; collectives per "
+            f"decode step {sorted(set(per_step))}")
+        first = {i: eng.first_logits[i].cpu() for i in out}
+        # the planted faults, on the engine's shards: rank 1 leaves one
+        # layer's w_down unreduced (it takes part in the all-reduce and
+        # keeps its partial), or quantizes every row-parallel projection
+        # with its local absmax (it takes part in the max and keeps its
+        # own); rank 0 runs as sound
+        target = eng.params["units"][TP_FAULT_LAYER]["layer_0"]["ffn"][
+            "w_down"]
+        orig_apply, orig_reduce = sl.apply, tpmod.reduce
+        orig_max = tpmod.reduce_max
+
+        def keep_partial(y):
+            orig_reduce(y)
+            return y
+
+        def skip_reduce(p, x, c, activation=None, reduce_out=False):
+            if p is target and rank == 1:
+                tpmod.reduce = keep_partial
+                try:
+                    return orig_apply(p, x, c, activation, reduce_out)
+                finally:
+                    tpmod.reduce = orig_reduce
+            return orig_apply(p, x, c, activation, reduce_out)
+
+        def local_absmax(a):
+            orig_max(a)
+            return a
+
+        faults = {}
+        # on the compressed engine only: the slided one is its bit-equal
+        # twin at tp = 2 (logged by phase_tp)
+        plants = (("skip_reduce", (sl, "apply", skip_reduce)),
+                  ("local_absmax", (tpmod, "reduce_max", local_absmax)))
+        for f, (fname, (mod, name, patch)) in enumerate(
+                plants if mode == "compressed" else ()):
+            before = getattr(mod, name)
+            setattr(mod, name, patch)
+            try:
+                base = TP_RID + 10 * f
+                for i, p in enumerate(prompts):
+                    eng.submit(p, 1, rid=base + i, arrival=2 * i)
+                eng.run()
+            finally:
+                setattr(mod, name, before)
+            faults[fname] = {i: eng.first_logits[base + i].cpu()
+                             for i in range(len(prompts))}
+        eng.kv.check()
+        res[mode] = {
+            "tokens": {i: c.tokens for i, c in out.items()},
+            "ok": all(c.ok and len(c.tokens) == NEW_TOKENS
+                      for c in out.values()),
+            "first": first if rank == 0 else None,
+            "rows": ({i: torch.stack(v).cpu() for i, v in rows.items()}
+                     if rank == 0 else None),
+            "faults": faults if rank == 0 else None,
+            "launches": launches, "act_absmax": act_absmax,
+            "per_step": per_step, "full": full, "shard": shard, "mem": mem,
+            "heads": heads,
+            "balanced": balanced, "tok_s": s.decode_tok_s,
+            "tok_s_per_device": s.decode_tok_s_per_device,
+            "wall": s.wall_s, "decode_steps": s.decode_steps,
+            "captures": eng.captures}
+        del eng, out, rows, first, faults, target
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(res, f"{root}/rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _tp_divergences(torch, mode, got, ref):
+    """tp = 2 streams against tp = 1's: identical, or each first
+    divergence a tie within rounding at the tp = 1 logits there (its top-2
+    margin below max|tp2 - tp1| of the logits there, phase 7's rule).
+    Returns the number of divergent requests."""
+    ties = 0
+    for i, want in ref["tokens"].items():
+        toks = got["tokens"][i]
+        first = next((j for j, (a, b) in enumerate(zip(toks, want))
+                      if a != b), None)
+        if first is None:
+            continue
+        def at(side, j):
+            return side["first"][i] if j == 0 else side["rows"][i][j - 1]
+        r1, r2 = at(ref, first).float(), at(got, first).float()
+        top2 = torch.topk(r1, 2).values
+        margin = (top2[0] - top2[1]).item()
+        diff = (r2 - r1).abs().max().item()
+        log(f"tp {mode} request {i}: first divergence at {first} (tp=2 "
+            f"{toks[first]}, tp=1 {want[first]}): tp=1 top-2 margin "
+            f"{margin:.3e}, max|tp2 - tp1| {diff:.3e}")
+        assert margin < diff, \
+            f"tp {mode} request {i}: divergence at {first} is no tie"
+        ties += 1
+    return ties
+
+
+def _tp_launcher_start():
+    """Start ``launch/serve.py --engine --tp 2 --dist-backend gloo`` at full
+    width and TP_LAUNCH_LAYERS layers, 6:8 compressed, fp32, beside
+    ``--tp 1`` and ``--tp 2 --dist-backend nccl``; returns the processes
+    (``_tp_launcher_check`` reads them)."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "h2o-danube-3-4b", "--sparse", "6", "8", "--precision", "none",
+           "--dtype", "float32", "--engine", "--fused-attention",
+           "--layers", str(TP_LAUNCH_LAYERS)]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    args = {"tp1": ["--tp", "1"],
+            "tp2": ["--tp", str(TP), "--dist-backend", "gloo"],
+            "nccl": ["--tp", str(TP), "--dist-backend", "nccl"]}
+    return {k: subprocess.Popen(cmd + a, cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+            for k, a in args.items()}
+
+
+def _tp_launcher_check(torch, procs):
+    """The launcher's --tp 2 streams equal --tp 1's; --dist-backend nccl
+    on this one card exits nonzero, naming gloo (it does not switch)."""
+    got = {k: p.communicate(timeout=TP_TIMEOUT) + (p.returncode,)
+           for k, p in procs.items()}
+    streams = {}
+    for k in ("tp1", "tp2"):
+        out, err, rc = got[k]
+        for line in out.splitlines():
+            log(f"  [serve {k}] {line}")
+        assert rc == 0, f"serve {k}: {err[-3000:]}"
+        streams[k] = [ln for ln in out.splitlines()
+                      if ln.startswith("[launch.serve] streams: ")]
+        assert len(streams[k]) == 1, out
+    assert streams["tp2"] == streams["tp1"], "launcher tp=2 streams != tp=1"
+    out, err, rc = got["nccl"]
+    assert rc != 0 and "--dist-backend gloo" in err, err[-2000:]
+    log(f"launcher at {TP_LAUNCH_LAYERS} layers, fp32: --tp 2 "
+        f"--dist-backend gloo streams == --tp 1; --dist-backend nccl on "
+        f"{torch.cuda.device_count()} device(s) refused: "
+        f"{err.strip().splitlines()[-1]}")
+
+
+def _tp_gates(torch, card, ref, ranks, kern):
+    """Phase 11's gates on the two ranks' results (``tp_rank``) against
+    phases 4 and 5's tp = 1 eager runs (``ref``); returns the phase's
+    figures."""
+    out = {"kernels": kern}
+    for mode in ("compressed", "slided"):
+        r0, r1 = ranks[0][mode], ranks[1][mode]
+        want = ref[mode]
+        assert r0["ok"] and r1["ok"], f"tp {mode}: a request failed"
+        assert r0["tokens"] == r1["tokens"], f"tp {mode}: the ranks disagree"
+        ties = _tp_divergences(torch, mode, r0, want)
+        same = sum(a == b for i, t in want["tokens"].items()
+                   for a, b in zip(t, r0["tokens"][i]))
+        total = sum(len(t) for t in want["tokens"].values())
+        # the logits gate, beside the planted faults
+        faults = ranks[0]["compressed"]["faults"]
+        read = {"sound": [], "skip_reduce": [], "local_absmax": []}
+        for i in want["tokens"]:
+            w = want["first"][i].float()
+            read["sound"].append(_rel_l2(r0["first"][i], w))
+            for f in ("skip_reduce", "local_absmax"):
+                read[f].append(_rel_l2(faults[f][i], w))
+        worst = {k: max(v) for k, v in read.items()}
+        least = {k: min(v) for k, v in read.items()}
+        log(f"tp {mode}: {same}/{total} tokens identical to tp = 1, "
+            f"{ties} divergent requests (each a tie); last-prefill logits "
+            f"vs tp = 1, relative L2: sound worst {worst['sound']:.3e}, "
+            f"planted faults (least) skip_reduce "
+            f"{least['skip_reduce']:.3e}, local_absmax "
+            f"{least['local_absmax']:.3e}; limit {TP_RL2}")
+        assert worst["sound"] <= TP_RL2, (mode, read)
+        for f in ("skip_reduce", "local_absmax"):
+            assert least[f] > TP_RL2, \
+                f"tp {mode}: planted fault {f} passes the gate: {read[f]}"
+        mine = "compressed_matmul" if mode == "compressed" \
+            else "fused_slided_matmul"
+        other = "fused_slided_matmul" if mode == "compressed" \
+            else "compressed_matmul"
+        for r, rk in enumerate((r0, r1)):
+            la = rk["launches"]
+            assert la[mine] > 0 and la["paged_attention"] > 0, (r, la)
+            assert la[other] == 0, (r, la)
+            if mode == "slided":
+                # every wo and w_down: 48 of a decode step's 169 linears
+                assert rk["act_absmax"] > 0, (r, rk["act_absmax"])
+                assert rk["act_absmax"] * sum(STEP_COUNTS.values()) == \
+                    48 * la[mine], (r, rk["act_absmax"], la)
+            else:
+                assert rk["act_absmax"] == 0, (r, rk)
+            assert 0.45 < rk["shard"] / rk["full"] < 0.55, (r, rk["shard"])
+            assert rk["heads"] == [4], rk["heads"]
+            assert rk["balanced"], f"rank {r} {mode}: pages do not balance"
+            assert set(rk["captures"].values()) == {0}, rk["captures"]
+            assert r0["per_step"] == rk["per_step"]
+        out[mode] = {"tok_s": r0["tok_s"], "launches": r0["launches"],
+                     "act_absmax": r0["act_absmax"],
+                     "per_step": sorted(set(r0["per_step"])),
+                     "mem": [rk["mem"] for rk in (r0, r1)],
+                     "shard": r0["shard"], "full": r0["full"],
+                     "read": worst, "least": least, "ties": ties}
+        log(f"tp {mode}: tp = 2 eager decode {r0['tok_s']:.2f} tok/s "
+            f"({r0['tok_s_per_device']:.2f} per device) vs tp = 1 eager "
+            f"{want['eager_tok_s']:.2f} tok/s; collectives per decode step "
+            f"{sorted(set(r0['per_step']))} (+1 gathering the logits rows "
+            f"here); device memory with both engines loaded "
+            f"{r0['mem'] / 1e9:.2f} / {r1['mem'] / 1e9:.2f} GB (linears "
+            f"{r0['shard'] / 1e9:.3f} of "
+            f"{r0['full'] / 1e9:.3f} GB); launches {r0['launches']}, B3 "
+            f"given act_absmax {r0['act_absmax']} ({card})")
+    c, s = ranks[0]["compressed"], ranks[0]["slided"]
+    same = c["tokens"] == s["tokens"] and all(
+        torch.equal(s["first"][i], v) for i, v in c["first"].items())
+    log(f"tp = 2 slided == compressed (streams and first logits bit for "
+        f"bit): {same}")
+    return out
+
+
+def phase_tp(torch, card, ref, timer):
+    """Phase 11: tensor-parallel serving on the card.  The kernels at the
+    shard shapes (``_tp_kernels``); then two gloo ranks sharing cuda:0
+    (``tp_rank``) serve phase 5's traffic with phase 4's weights at
+    tp = 2, compressed and slided, eager; their streams must agree, equal
+    phases 4 and 5's tp = 1 eager streams (or diverge only at a tie), and
+    their last-prefill logits pass TP_RL2 against tp = 1's beside two
+    planted faults that must not; B1 (compressed), B3 with its act_absmax
+    instance (slided) and B2 must launch in run(); each rank's linears
+    are half of tp = 1's, its pools hold 4 KV heads and its pages
+    balance.  Then the launcher's check (``_tp_launcher_start``)."""
+    import gc
+    import os
+    import tempfile
+    from repro_torch.sharding import dist as tdist
+
+    t0 = time.time()
+    log("== tensor parallelism: the kernels at one rank's shard shapes ==")
+    kern = _tp_kernels(torch, timer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"== tensor parallelism: h2o-danube-3-4b 24L d3840 at tp = 2, two "
+        f"gloo ranks on one card, 6:8 compressed and slided int8, eager; "
+        f"device memory here {torch.cuda.memory_allocated() / 1e9:.2f} GB ==")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with tempfile.TemporaryDirectory() as root:
+        texts = tdist.launch(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.tp_rank(sys.argv[1]))", root], TP,
+            env=env, cwd=ROOT, timeout=TP_TIMEOUT)
+        for r, text in enumerate(texts):
+            for line in text.splitlines():
+                log(f"  [rank {r}] {line}")
+        ranks = [torch.load(f"{root}/rank{r}.pt", weights_only=False)
+                 for r in range(TP)]
+    out = _tp_gates(torch, card, ref, ranks, kern)
+    # after the ranks, so nothing else shares the card while they are timed
+    launcher = _tp_launcher_start()
+    try:
+        _tp_launcher_check(torch, launcher)
+    finally:
+        for proc in launcher.values():  # stopped on any failure above
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["seconds"] = time.time() - t0
+    log(f"phase 11 (tensor parallelism): {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def main() -> int:
+    import gc
     try:
         import torch
     except ImportError:
@@ -3242,6 +3788,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     audio_vision = phase_audio_vision(torch, card)
     training = phase_training(torch, card)
+    ref = {mode: {"tokens": d["tokens"], "first": d["first_logits"],
+                  "rows": d["rows"], "eager_tok_s": d["eager_tok_s"]}
+           for mode, d in (("compressed", compressed), ("slided", slided))}
+    gc.collect()  # engines and graphs of earlier phases in cycles
+    torch.cuda.empty_cache()
+    tp = phase_tp(torch, card, ref, Timer(torch))
     prof, tok_s = slided["profile"], slided["tok_s"]
     for label, pr in prof.items():
         log(f"slided decode step, {label}: {pr['step_ms']:.3f} ms, host "
@@ -3267,6 +3819,18 @@ def main() -> int:
         f"share {pr['idle_share']:.3f}; kernel time shares " + ", ".join(
             f"{k} {v:.3f}" for k, v in pr["shares"].items())
         + f"; phase 10 {training['seconds']:.1f} s ({card})")
+    for mode in ("compressed", "slided"):
+        t = tp[mode]
+        log(f"tp = 2 {mode}: eager decode {t['tok_s']:.2f} tok/s vs tp = 1 "
+            f"eager {ref[mode]['eager_tok_s']:.2f}; collectives per decode "
+            f"step {t['per_step']}; device memory per rank after load "
+            f"{', '.join(f'{m / 1e9:.2f}' for m in t['mem'])} GB (linears "
+            f"{t['shard'] / 1e9:.3f} of {t['full'] / 1e9:.3f} GB); logits vs "
+            f"tp = 1 worst {t['read']['sound']:.3e}, planted faults least "
+            f"{t['least']['skip_reduce']:.3e} / "
+            f"{t['least']['local_absmax']:.3e}; launches {t['launches']}, "
+            f"B3 given act_absmax {t['act_absmax']}; phase 11 "
+            f"{tp['seconds']:.1f} s ({card})")
 
     def entry(name, source, replaces, n, err, st):
         return {"name": name, "route": "cuda",
@@ -3295,6 +3859,13 @@ def main() -> int:
         entry("quant_matmul", "quant_matmul.cu",
               "src/repro/kernels/quant_matmul.py:46",
               slided_launches["quant_matmul"], sl_err["B5"], sl["B5"]),
+        # B3 given the rows' absmax: phase 11's slided tp = 2 run, one
+        # rank's launches; times per tp = 2 decode step's 48 row-parallel
+        # calls at the shard shapes
+        entry("fused_slided_matmul[act_absmax]", "fused_slided_matmul.cu",
+              "src/repro/kernels/fused_slide_matmul.py:136",
+              tp["slided"]["act_absmax"], tp["kernels"]["B3_act_absmax"],
+              tp["kernels"]["row"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -110,6 +110,42 @@ def decompress_slided(c: CompressedSlided) -> torch.Tensor:
     return torch.stack(cols, dim=-1).reshape(lead + (g * nw * n,))
 
 
+def split_out(c: CompressedSlided, shards: int) -> list[CompressedSlided]:
+    """Column-parallel sharding: ``shards`` equal contiguous blocks of the
+    output dim, each over the full contraction length ``k``; shard ``i``
+    decompresses to rows ``[i*out/shards, (i+1)*out/shards)``."""
+    out = c.values.shape[-2] if c.values.dim() > 1 else 1
+    if c.values.dim() < 2 or out % shards:
+        raise ValueError(f"cannot split out dim of shape "
+                         f"{tuple(c.values.shape)} into {shards} shards")
+    step = out // shards
+    return [CompressedSlided(
+        c.values[..., i * step:(i + 1) * step, :],
+        c.indices[..., i * step:(i + 1) * step, :],
+        c.k, c.z, c.l, c.m, c.n, c.packed) for i in range(shards)]
+
+
+def split_k(c: CompressedSlided, shards: int) -> list[CompressedSlided]:
+    """Row-parallel sharding: ``shards`` contiguous blocks of whole
+    L-groups of the contraction dim.  The layout is group-major, so a
+    contiguous slice of the packed dim is a contiguous slice of K, and
+    shard ``i`` decompresses to columns ``[i*k/shards, (i+1)*k/shards)``
+    with ``k/shards`` as its contraction length.  Nibble-packed values
+    hold an even slot count per group, so their byte slices stay aligned.
+    Requires ``(k/shards) % L == 0``."""
+    if c.k % shards or (c.k // shards) % c.l:
+        raise ValueError(
+            f"cannot split k={c.k} into {shards} shards of whole L={c.l} "
+            f"groups (pattern group would straddle a shard boundary)")
+    per_group = c.decomposition.num_windows * c.m   # slots per L-group
+    step = (c.k // shards) // c.l * per_group
+    vstep = step // 2 if c.packed else step
+    return [CompressedSlided(
+        c.values[..., i * vstep:(i + 1) * vstep],
+        c.indices[..., i * step:(i + 1) * step],
+        c.k // shards, c.z, c.l, c.m, c.n, c.packed) for i in range(shards)]
+
+
 def pack_meta(indices: torch.Tensor) -> torch.Tensor:
     """Bit-pack 2-bit indices into int32 words, 16 per word (index ``i``
     of a word at bits ``2i``), the last word zero-padded."""

@@ -113,44 +113,81 @@ def prepare(params: dict[str, Any], cfg: SparsityConfig) -> dict[str, Any]:
 
 
 def apply(params: dict[str, Any], x: torch.Tensor, cfg: SparsityConfig,
-          activation: str | None = None) -> torch.Tensor:
+          activation: str | None = None, reduce_out: bool = False
+          ) -> torch.Tensor:
     """y = act(x @ W^T) under the configured execution path. x: [..., K].
     ``activation`` (None | 'silu' | 'gelu') rides the kernel epilogue on
     the quantized slided and the compressed paths and is a separate
     elementwise op on the others — identical semantics
-    (``kernels.ref.epilogue``)."""
+    (``kernels.ref.epilogue``).
+
+    ``reduce_out`` marks the projection row-parallel under tensor-parallel
+    serving (DESIGN.md §9): the rank's partial output, taken after the
+    epilogue, is all-reduced over the ranks.  ``activation`` is refused
+    there (a nonlinearity on partial sums does not commute with the sum),
+    and a quantized recipe quantizes with the global per-token absmax
+    (``tp.reduce_max``), so every rank emits the unsharded run's quantized
+    values and scale.  The partials are summed in fp32 and rounded once to
+    the output dtype, as the unsharded epilogue rounds its fp32 value
+    once.  Without an active tensor-parallel context ``reduce_out``
+    changes nothing."""
     from repro_torch.kernels import ops as kops  # deferred: kernels import core
     from repro_torch.kernels import ref
+    from repro_torch.sharding import tp
 
     _check_mode(cfg)
     dec = cfg.decomposition()
     rec = cfg.recipe
+    sharded = reduce_out and tp.size() > 1
+    if sharded and activation is not None:
+        raise ValueError(
+            f"activation={activation!r} cannot be fused into a "
+            "row-parallel (reduce_out) projection under tensor "
+            "parallelism: the epilogue would run on per-shard partial "
+            "sums before the all-reduce")
+    act_absmax = None
+    if sharded and rec.quantized:
+        act_absmax = tp.reduce_max(quant.absmax(x))
+    # a row-parallel partial leaves the kernel in fp32
+    out_dtype = torch.float32 if sharded else None
+
+    def done(y, dtype):
+        if not sharded:
+            return y
+        return tp.reduce(y.to(torch.float32)).to(dtype)
+
     if cfg.mode in ("dense", "masked") or dec is None:
         w = params["w"]
         if cfg.mode == "masked" and dec is not None:
             w = masks.ste_prune(w, dec.source)
         if rec.quantized:
-            y = quant.matmul_dequant(rec.quantize_act(x),
-                                     rec.quantize_weight(w), x.dtype)
+            y = quant.matmul_dequant(rec.quantize_act(x, absmax=act_absmax),
+                                     rec.quantize_weight(w),
+                                     out_dtype or x.dtype)
         else:
             y = x @ w.to(x.dtype).T
-        return ref.apply_activation(y, activation) if activation else y
+        return done(ref.apply_activation(y, activation) if activation
+                    else y, x.dtype)
 
     if not _prepared(params, cfg):
         params = prepare(params, cfg)
     if cfg.mode == "slided":
         if rec.quantized:
-            return kops.slided_matmul_quant(
+            return done(kops.slided_matmul_quant(
                 x, params["sp_values"], params["sp_meta"], params["s_w"], dec,
-                recipe=rec, out_dtype=x.dtype, activation=activation)
+                recipe=rec, out_dtype=out_dtype or x.dtype,
+                activation=activation, act_absmax=act_absmax), x.dtype)
         y = slide.slided_matmul(x, params["w_slided"], dec).to(x.dtype)
-        return ref.apply_activation(y, activation) if activation else y
+        return done(ref.apply_activation(y, activation) if activation
+                    else y, x.dtype)
     k = params["indices"].shape[-1] * dec.source.l // dec.source.z
     c = comp.CompressedSlided(
         params["values"], params["indices"], k, dec.source.z, dec.source.l,
         dec.hw.m, dec.hw.n, packed=rec.packed_weights)
-    return kops.compressed_matmul(x, c, s_w=params.get("s_w"), recipe=rec,
-                                  activation=activation)
+    return done(kops.compressed_matmul(
+        x, c, s_w=params.get("s_w"), recipe=rec, out_dtype=out_dtype,
+        activation=activation, act_absmax=act_absmax),
+        rec.out_dtype(x.dtype))
 
 
 def _prepared(params: dict[str, Any], cfg: SparsityConfig) -> bool:

@@ -500,6 +500,7 @@ struct Args {
   float* amax;
   int* part;
   int R, M, K, n_fam, out_bf16, act, splits;
+  int amax_given;  // amax holds the rows' absmax already: no absmax pass
 };
 
 template <int WM, int WN, int TM, int TN, bool PACKED, bool DECODE>
@@ -521,9 +522,12 @@ cudaError_t launch_sparse(const Args& a, cudaStream_t st) {
   const int sps = (KQ + a.splits - 1) / a.splits;
   if (DECODE && sps > DEC_MAX_STAGES) return cudaErrorInvalidValue;
   const int smem = DECODE ? sps * STG : 2 * STG;
-  absmax_kernel<<<a.R, 256, 0, st>>>(a.x, a.x_bf16, a.amax, a.K);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  cudaError_t e;
+  if (!a.amax_given) {
+    absmax_kernel<<<a.R, 256, 0, st>>>(a.x, a.x_bf16, a.amax, a.K);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
   const dim3 grid((a.M + BM - 1) / BM, (a.R + BN - 1) / BN, a.splits);
   kern<<<grid, 32 * WM * WN, smem, st>>>(
       a.x, a.x_bf16, a.vals, a.meta, a.sw, a.bias, a.out, a.amax,
@@ -548,9 +552,11 @@ cudaError_t launch_int(const Args& a, cudaStream_t st) {
 
 template <bool PACKED>
 cudaError_t launch_fp8(const Args& a, cudaStream_t st) {
-  absmax_kernel<<<a.R, 256, 0, st>>>(a.x, a.x_bf16, a.amax, a.K);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  if (!a.amax_given) {
+    absmax_kernel<<<a.R, 256, 0, st>>>(a.x, a.x_bf16, a.amax, a.K);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
   const int Mt = (a.M + 15) / 16;
   const dim3 grid((Mt + F8_WARPS - 1) / F8_WARPS, (a.R + F8_RB - 1) / F8_RB);
   fp8_kernel<PACKED><<<grid, 32 * F8_WARPS, 0, st>>>(
@@ -564,14 +570,16 @@ cudaError_t launch_fp8(const Args& a, cudaStream_t st) {
 // C entry point (bound with ctypes).  x: [R, K] bf16 (x_bf16) or f32;
 // vals/meta: the 2:4 operand of sparse_operand for M rows; sw: [M] fp32;
 // bias: [M] fp32 or null; out: [R, M] bf16 (out_bf16) or f32; amax: fp32
-// scratch [R]; part: int32 scratch [splits, R, M] when splits > 1 (the
+// [R], scratch the absmax pass fills, or with amax_given the rows' absmax
+// (a tensor-parallel run's global one), read as given and no absmax pass
+// launched; part: int32 scratch [splits, R, M] when splits > 1 (the
 // int8/w4 instances; e4m3 takes splits = 1).  Returns the cudaError_t of
 // the launches (0 on success).
 extern "C" int fused_slided_matmul_launch(
     const void* x, int x_bf16, const void* vals, const void* meta,
     const void* sw, const void* bias, void* out, void* amax, void* part,
     int R, int M, int K, int n_fam, int fp8, int packed, int out_bf16,
-    int act, int splits, void* stream) {
+    int act, int splits, int amax_given, void* stream) {
   if (n_fam < 2 || n_fam > 4 || R <= 0 || M <= 0 || K <= 0
       || K % (2 * n_fam) || splits < 1 || amax == nullptr
       || (splits > 1 && (part == nullptr || fp8)))
@@ -580,7 +588,7 @@ extern "C" int fused_slided_matmul_launch(
                static_cast<const uint4*>(meta), static_cast<const float*>(sw),
                static_cast<const float*>(bias), out,
                static_cast<float*>(amax), static_cast<int*>(part), R, M, K,
-               n_fam, out_bf16, act, splits};
+               n_fam, out_bf16, act, splits, amax_given};
   auto s = static_cast<cudaStream_t>(stream);
   switch (fp8 * 2 + (packed ? 1 : 0)) {
     case 0: return launch_int<false>(a, s);

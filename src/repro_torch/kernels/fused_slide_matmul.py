@@ -8,7 +8,10 @@ kernel reads Phi(W) as the 2:4 operand of Hopper's sparse tensor cores
 and their two 2-bit positions, laid out in the instruction's fragment
 order by :func:`sparse_operand` (inverse: :func:`dense_from_operand`).
 ``launch_count`` counts the kernel's launches (a CUDA graph replay adds
-those its capture recorded, ``ops.recorded_launches``).
+those its capture recorded, ``ops.recorded_launches``), and
+``_COUNTS["act_absmax"]`` those of them given the rows' absmax
+(``act_absmax``: a tensor-parallel run's global one), which skip the
+kernel's own absmax pass.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from repro_torch.core import packer
 from . import _build
 
 _ACT = {None: 0, "silu": 1, "gelu": 2}
-_COUNTS = {"launches": 0}
+_COUNTS = {"launches": 0, "act_absmax": 0}
 
 KSTEP = 64          # lifted columns of one mma.sp (k64): 16 windows
 STAGE_KS = 4        # k-steps per kernel stage: one 16-byte metadata load
@@ -42,8 +45,13 @@ def launch_count() -> int:
     return _COUNTS["launches"]
 
 
+def act_absmax_count() -> int:
+    return _COUNTS["act_absmax"]
+
+
 def reset_counts() -> None:
     _COUNTS["launches"] = 0
+    _COUNTS["act_absmax"] = 0
 
 
 def lifted_width(k: int, n_fam: int) -> int:
@@ -165,13 +173,13 @@ def splits_for(rows: int, m: int, gk: int) -> int:
 def _fn():
     fn = _build.load("fused_slided_matmul").fused_slided_matmul_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def _bad_args(x, values, meta, s_w, bias, n_fam, act, packed, out_dtype,
-              activation) -> str | None:
+              activation, act_absmax=None) -> str | None:
     """What the kernel does not take, or None (messages are built only on
     failure: this runs on every launch)."""
     if not x.is_cuda:
@@ -205,7 +213,10 @@ def _bad_args(x, values, meta, s_w, bias, n_fam, act, packed, out_dtype,
     if bias is not None and (tuple(bias.shape) != (m,)
                              or bias.dtype != torch.float32):
         return "bias must be fp32 [M]"
-    for t in (x, values, meta, s_w, bias):
+    if act_absmax is not None and (act_absmax.numel() != x.shape[0]
+                                   or act_absmax.dtype != torch.float32):
+        return "act_absmax must be fp32 with one value per row [R]"
+    for t in (x, values, meta, s_w, bias, act_absmax):
         if t is not None and (t.device != x.device
                               or not t.is_contiguous()):
             return "operands must be contiguous and on one device"
@@ -217,16 +228,21 @@ def fused_slided_matmul_cuda(x: torch.Tensor, values: torch.Tensor,
                              bias: torch.Tensor | None = None, *, n_fam: int,
                              act: str = "int8", packed: bool = False,
                              out_dtype: torch.dtype = torch.float32,
-                             activation: str | None = None) -> torch.Tensor:
+                             activation: str | None = None,
+                             act_absmax: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """Launch the kernel on CUDA tensors.
 
     x: [R, K] bf16 | f32; (values, meta): the operand of
     :func:`sparse_operand` for M = ``s_w.shape[0]`` weight rows; s_w:
     [M, 1] fp32; bias: [M] fp32 or None.  ``act`` ('int8' | 'fp8') picks
-    the prologue quantizer.  out_dtype: bf16 or f32.  The int8/w4
-    instances split gamma*K by :func:`splits_for`."""
+    the prologue quantizer.  out_dtype: bf16 or f32.  ``act_absmax``
+    ([R] or [R, 1] fp32, contiguous): the rows' absmax the prologue
+    quantizes with, in place of the absmax pass the launch otherwise
+    runs first.  The int8/w4 instances split gamma*K by
+    :func:`splits_for`."""
     bad = _bad_args(x, values, meta, s_w, bias, n_fam, act, packed,
-                    out_dtype, activation)
+                    out_dtype, activation, act_absmax)
     if bad is not None:
         raise ValueError(f"fused_slided_matmul_cuda: {bad}")
     rows, k = x.shape
@@ -235,7 +251,8 @@ def fused_slided_matmul_cuda(x: torch.Tensor, values: torch.Tensor,
                                                lifted_width(k, n_fam))
 
     out = torch.empty((rows, m), dtype=out_dtype, device=x.device)
-    amax = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    amax = (act_absmax if act_absmax is not None else
+            torch.empty((rows,), dtype=torch.float32, device=x.device))
     part = (torch.empty((splits, rows, m), dtype=torch.int32,
                         device=x.device) if splits > 1 else None)
     err = _fn()(x.data_ptr(), int(x.dtype == torch.bfloat16),
@@ -245,7 +262,9 @@ def fused_slided_matmul_cuda(x: torch.Tensor, values: torch.Tensor,
                 part.data_ptr() if part is not None else None,
                 rows, m, k, n_fam, int(act == "fp8"), int(packed),
                 int(out_dtype == torch.bfloat16), _ACT[activation], splits,
+                int(act_absmax is not None),
                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_slided_matmul_launch")
     _COUNTS["launches"] += 1
+    _COUNTS["act_absmax"] += act_absmax is not None
     return out

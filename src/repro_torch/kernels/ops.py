@@ -5,6 +5,10 @@ backend: a CUDA tensor goes to the hand-written kernel, a CPU tensor to
 the plain PyTorch version in ``ref``.  A CUDA tensor never reaches a plain
 version, and no kernel failure falls back to one.  The kernels are built
 (nvcc) and loaded (ctypes) by ``_build`` at their first launch.
+``act_absmax`` lets a tensor-parallel row-parallel projection quantize
+with the global per-token absmax, so each rank's quantized activations
+are the unsharded run's: B1's path quantizes with it outside the kernel,
+B3 takes it in place of its own absmax pass.
 """
 from __future__ import annotations
 
@@ -109,12 +113,16 @@ def slided_matmul_quant(x: torch.Tensor, sp_values: torch.Tensor,
                         sp_meta: torch.Tensor, s_w: torch.Tensor,
                         dec: SlideDecomposition, recipe="int8", out_dtype=None,
                         bias: torch.Tensor | None = None,
-                        activation: str | None = None) -> torch.Tensor:
+                        activation: str | None = None,
+                        act_absmax: torch.Tensor | None = None
+                        ) -> torch.Tensor:
     """The paper's GPU path as ONE kernel: per-token quantization and
     lifting in the GEMM prologue, so the lifted gamma*K activations never
     reach device memory.  int8 or e4m3 activations against the 2:4
     operand of the slided weights (``fused_slide_matmul.sparse_operand``
-    of Phi(W), int8 or nibble-packed int4), M = ``s_w.shape[0]``."""
+    of Phi(W), int8 or nibble-packed int4), M = ``s_w.shape[0]``.
+    ``act_absmax`` [..., 1]: the per-token absmax to quantize with (the
+    kernel then skips its own absmax pass)."""
     rec = precision.resolve(recipe)
     if not rec.quantized:
         raise ValueError(f"recipe {rec.name!r} has no quantized GEMM form")
@@ -122,26 +130,36 @@ def slided_matmul_quant(x: torch.Tensor, sp_values: torch.Tensor,
     out_dtype = out_dtype or rec.out_dtype(x.dtype)
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    aa = _flat_absmax(act_absmax)
     if x2.is_cuda:
         y = _fsm.fused_slided_matmul_cuda(
             x2, sp_values, sp_meta, s_w, bias, n_fam=n, act=rec.act,
             packed=rec.packed_weights, out_dtype=out_dtype,
-            activation=activation)
+            activation=activation, act_absmax=aa)
     else:
         y = ref.slided_matmul_sparse(x2, sp_values, sp_meta, s_w, dec, rec,
                                      out_dtype, bias=bias,
-                                     activation=activation)
+                                     activation=activation, act_absmax=aa)
     return y.reshape(lead + (y.shape[-1],))
+
+
+def _flat_absmax(act_absmax: torch.Tensor | None) -> torch.Tensor | None:
+    """[..., 1] per-token absmax -> [rows, 1], row-aligned with x2."""
+    if act_absmax is None:
+        return None
+    return act_absmax.reshape(-1, 1).to(torch.float32).contiguous()
 
 
 def compressed_matmul(x: torch.Tensor, c: CompressedSlided,
                       s_w: torch.Tensor | None = None, recipe=None,
                       out_dtype=None, bias: torch.Tensor | None = None,
-                      activation: str | None = None) -> torch.Tensor:
+                      activation: str | None = None,
+                      act_absmax: torch.Tensor | None = None) -> torch.Tensor:
     """y = act(x @ decompress(c)^T + bias) — the SlideSparse linear.
 
     Quantized recipes need rowwise s_w [out, 1] and quantize x per token
-    (plain torch on either device); ``c.packed`` must match the recipe's
+    (plain torch on either device), with ``act_absmax`` [..., 1] as the
+    per-token absmax when given; ``c.packed`` must match the recipe's
     weight storage.  x: [..., K] -> [..., out]."""
     rec = precision.resolve(recipe)
     out_dtype = out_dtype or rec.out_dtype(x.dtype)
@@ -156,14 +174,16 @@ def compressed_matmul(x: torch.Tensor, c: CompressedSlided,
                 f"recipe {rec.name!r} expects "
                 f"{'nibble-packed' if rec.packed_weights else 'per-slot'} "
                 f"values but the operand has packed={c.packed}")
+        aa = _flat_absmax(act_absmax)
         if x2.is_cuda:
-            qx = rec.quantize_act(x2)
+            qx = rec.quantize_act(x2, absmax=aa)
             y = _smm.compressed_matmul_cuda(
                 qx.q, c.values, c.indices, qx.scale, s_w, bias, n_fam=n,
                 packed=c.packed, out_dtype=out_dtype, activation=activation)
         else:
             y = ref.compressed_matmul_quant(x2, c, s_w, rec, out_dtype,
-                                            bias=bias, activation=activation)
+                                            bias=bias, activation=activation,
+                                            act_absmax=aa)
     else:
         if x2.is_floating_point() and not c.values.is_floating_point():
             raise TypeError(

@@ -52,12 +52,14 @@ def compressed_matmul_fp(x: torch.Tensor, c: comp.CompressedSlided,
 
 def compressed_matmul_quant(x: torch.Tensor, c: comp.CompressedSlided,
                             s_w: torch.Tensor, recipe, out_dtype=None,
-                            bias=None, activation: str | None = None
+                            bias=None, activation: str | None = None,
+                            act_absmax: torch.Tensor | None = None
                             ) -> torch.Tensor:
-    """Quantized path: per-token activation quantization (int8 or e4m3),
-    then :func:`compressed_matmul_dequant`.  s_w: [out, 1] fp32."""
+    """Quantized path: per-token activation quantization (int8 or e4m3,
+    with the rows' ``act_absmax`` [R, 1] when given), then
+    :func:`compressed_matmul_dequant`.  s_w: [out, 1] fp32."""
     rec = precision.resolve(recipe)
-    qx = rec.quantize_act(x)
+    qx = rec.quantize_act(x, absmax=act_absmax)
     return compressed_matmul_dequant(qx.q, qx.scale, c, s_w,
                                      out_dtype or x.dtype, bias, activation)
 
@@ -168,10 +170,13 @@ def slided_matmul_quant(x: torch.Tensor, w_slided_q: torch.Tensor,
 def slided_matmul_sparse(x: torch.Tensor, sp_values: torch.Tensor,
                          sp_meta: torch.Tensor, s_w: torch.Tensor, dec,
                          recipe, out_dtype=None, bias=None,
-                         activation: str | None = None) -> torch.Tensor:
+                         activation: str | None = None,
+                         act_absmax: torch.Tensor | None = None
+                         ) -> torch.Tensor:
     """The fused kernel's function on its 2:4 operand
     (``fused_slide_matmul.sparse_operand``): invert the layout to Phi(W),
-    then :func:`slided_matmul_quant`.  M is ``s_w.shape[0]``."""
+    then :func:`slided_matmul_quant` (with the rows' ``act_absmax`` [R, 1]
+    when given).  M is ``s_w.shape[0]``."""
     from . import fused_slide_matmul as fsm  # the operand's layout
 
     rec = precision.resolve(recipe)
@@ -179,7 +184,7 @@ def slided_matmul_sparse(x: torch.Tensor, sp_values: torch.Tensor,
     ws = fsm.dense_from_operand(sp_values, sp_meta, s_w.shape[0], gk,
                                 packed=rec.packed_weights)
     return slided_matmul_quant(x, ws, s_w, dec, rec, out_dtype, bias=bias,
-                               activation=activation)
+                               activation=activation, act_absmax=act_absmax)
 
 
 def slided_matmul_dequant(q_lift: torch.Tensor, s_x: torch.Tensor,

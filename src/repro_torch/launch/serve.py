@@ -8,10 +8,15 @@ with ``--engine``, the continuous-batching paged-KV engine:
 ``--prefix-cache`` (radix prefix cache over copy-on-write pages),
 ``--speculate K --draft ngram|random`` (speculative decoding),
 ``--inject-faults SEED`` (deterministic allocation and step faults with
-bounded retries) and ``--async`` (the overlapped loop).  ``--tp`` is
-accepted and refused with ``NotImplementedError`` (not ported yet).
-``--arch`` takes every config of the registry: dense, MoE (granite-moe,
-mixtral), Mamba-2 (mamba2), the jamba hybrid, qwen2-vl (M-RoPE; served
+bounded retries) and ``--async`` (the overlapped loop).  ``--tp N`` with
+``--engine`` runs the engine tensor-parallel over N ranks: the command
+starts them itself (``sharding.dist``) or joins ``torchrun``'s, each rank
+on ``cuda:{local_rank % device_count}`` (or ``--device cpu``), over the
+``--dist-backend`` the caller names (``nccl``, the default, needs one
+device per rank; ``gloo`` lets the ranks share a device); rank 0 prints
+the streams and the stats.  ``--layers N`` cuts the depth at full
+width; ``--dtype`` sets the activation and KV page dtype.  ``--arch`` takes every config of the registry: dense, MoE
+(granite-moe, mixtral), Mamba-2 (mamba2), the jamba hybrid, qwen2-vl (M-RoPE; served
 text-only, as JAX's launcher serves it) and whisper-small (the
 encoder-decoder, fed seeded audio frames [B, 1500, d] in place of the
 conv frontend; one-shot only: with ``--engine`` the engine refuses it,
@@ -22,6 +27,8 @@ which make the block the identity).
 """
 import argparse
 import dataclasses
+import json
+import sys
 
 import torch
 
@@ -30,12 +37,18 @@ from repro_torch.configs import registry
 from repro_torch.core.linear import SparsityConfig
 from repro_torch.models import model as M
 from repro_torch.runtime import faults as fl, serve_loop
+from repro_torch.sharding import dist as tdist
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (full width)")
+    ap.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
+                    help="activation and KV page dtype (default: the "
+                         "config's)")
     ap.add_argument("--sparse", nargs=2, type=int, metavar=("Z", "L"))
     ap.add_argument("--act-quant", choices=["int8"], default=None,
                     help="legacy precision flag; maps onto --precision int8")
@@ -55,7 +68,12 @@ def main(argv=None):
     ap.add_argument("--engine", action="store_true",
                     help="serve through the continuous-batching paged-KV "
                          "engine (staggered arrivals)")
-    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="engine mode: tensor-parallel ranks")
+    ap.add_argument("--dist-backend", default="nccl",
+                    choices=["nccl", "gloo"],
+                    help="torch.distributed backend of the --tp ranks "
+                         "(nccl needs one device per rank)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=256)
     ap.add_argument("--prefill-chunk", type=int, default=32)
@@ -72,10 +90,25 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.tp > 1 and not args.engine:
         raise SystemExit("--tp requires --engine")
-    device = resolve_device(args.device)
+    rank = 0
+    if args.tp > 1:
+        joined = tdist.launcher_ranks(
+            "repro_torch.launch.serve",
+            sys.argv[1:] if argv is None else list(argv), args.tp,
+            args.dist_backend, args.device)
+        if joined is None:  # the ranks ran, rank 0's output printed
+            return
+        rank, device = joined
+    else:
+        device = resolve_device(args.device)
 
     cfg = registry.smoke_config(args.arch) if args.smoke \
         else registry.get(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype,
+                                  kv_cache_dtype=args.dtype)
     if args.sparse:
         cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
             pattern=tuple(args.sparse), mode="compressed",
@@ -112,12 +145,19 @@ def main(argv=None):
                        deadline_steps=args.deadline_steps)
         out = eng.run()
         eng.kv.check()  # pages balance, faults or not
+        if args.tp > 1:
+            torch.distributed.destroy_process_group()
+            if rank:
+                return
         s = eng.stats
-        print(f"[launch.serve] engine(device={device}, precision="
+        print(f"[launch.serve] engine(device={device}, tp={s.tp}, precision="
               f"{s.precision}, policy={ecfg.policy}): {len(out)} requests; "
-              f"decode {s.decode_tok_s:.1f} tok/s; occupancy "
+              f"decode {s.decode_tok_s:.1f} tok/s "
+              f"({s.decode_tok_s_per_device:.1f} per device); occupancy "
               f"{s.mean_occupancy:.2f}; evictions {s.evictions}; ok "
               f"{s.completed_ok}; sample: {out[0].tokens[:8]}")
+        print("[launch.serve] streams: " + json.dumps(
+            {rid: c.tokens for rid, c in sorted(out.items())}))
         if args.prefix_cache:
             print(f"[launch.serve] prefix cache: hit_rate "
                   f"{s.prefix_hit_rate:.2f}; {s.prefill_chunks_skipped} "

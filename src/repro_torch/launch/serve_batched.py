@@ -16,7 +16,10 @@ opens every request with one N-token system prompt for ``--prefix-cache``
 to reuse; ``--speculate K`` verifies drafts of ``--draft`` in one
 [B, K+1] step; ``--inject-faults SEED`` arms the fault injector and
 ``--cancel-frac F`` cancels a seeded share of the requests mid-flight;
-``--async`` runs the overlapped loop.  Runs on CUDA unless ``--device``
+``--async`` runs the overlapped loop; ``--tp N`` serves tensor-parallel
+over N ranks (started here, or ``torchrun``'s) on the ``--dist-backend``
+named, rank 0 printing and holding the streams to the one-shot
+reference.  Runs on CUDA unless ``--device``
 says otherwise; weights come from a seeded ``torch.Generator``.
 ``--arch`` picks the family (MoE and SSM stacks included), widened as
 the JAX example widens it; an SSM block's ``wo`` is drawn too (``init``
@@ -24,6 +27,7 @@ keeps JAX's zeros, which make the block the identity).
 """
 import argparse
 import dataclasses
+import sys
 
 import numpy as np
 import torch
@@ -34,6 +38,7 @@ from repro_torch.core.linear import SparsityConfig
 from repro_torch.core.patterns import Pattern, SlideDecomposition, TWO_FOUR
 from repro_torch.models import model as M
 from repro_torch.runtime import faults as fl, serve_loop
+from repro_torch.sharding import dist as tdist
 
 
 def demo_model(arch, device):
@@ -88,21 +93,9 @@ def engine_traffic(args, base, params):
     return cfg, packed, prompts, ecfg
 
 
-def engine_demo(args, base, params, device):
-    """Continuous-batching traffic over the packed pipeline, every stream
-    held to the one-shot reference on the same packed weights."""
-    cfg, packed, prompts, ecfg = engine_traffic(args, base, params)
-    z, l = args.pattern
-    plan = ecfg.faults
-    print(f"=== SlideSparse {z}:{l} continuous-batching engine "
-          f"({args.requests} staggered requests, device={device}, "
-          f"policy={args.policy}, prefix_cache={args.prefix_cache}, "
-          f"attention={'fused' if args.fused_attention else 'gather'}) ===")
-    if plan is not None:
-        print(f"fault injection armed: seed={plan.seed} "
-              f"alloc_fail_rate={plan.alloc_fail_rate} "
-              f"step_error_rate={plan.step_error_rate} "
-              f"cancel_frac={args.cancel_frac} watchdog={args.watchdog}")
+def run_engine(args, packed, cfg, ecfg, prompts, device):
+    """Serve the demo's traffic (and its seeded cancellations) through one
+    engine; returns (engine, completions, cancellation schedule)."""
     eng = serve_loop.ServeEngine(packed, cfg, ecfg, device=device)
     eng.warmup()
     for i, p in enumerate(prompts):
@@ -125,9 +118,36 @@ def engine_demo(args, base, params, device):
 
     out = eng.run(on_step=on_step if cancel_at else None)
     eng.kv.check()  # no leaked or aliased pages, faults or not
+    if args.tp > 1:
+        torch.distributed.destroy_process_group()
+    return eng, out, cancel_at
+
+
+def engine_demo(args, base, params, device, rank=0):
+    """Continuous-batching traffic over the packed pipeline, every stream
+    held to the one-shot reference on the same packed weights (by rank 0
+    under ``--tp``; the other ranks serve and print nothing)."""
+    cfg, packed, prompts, ecfg = engine_traffic(args, base, params)
+    if rank:
+        run_engine(args, packed, cfg, ecfg, prompts, device)
+        return
+    z, l = args.pattern
+    plan = ecfg.faults
+    print(f"=== SlideSparse {z}:{l} continuous-batching engine "
+          f"({args.requests} staggered requests, device={device}, "
+          f"policy={args.policy}, prefix_cache={args.prefix_cache}, "
+          f"attention={'fused' if args.fused_attention else 'gather'}) ===")
+    if plan is not None:
+        print(f"fault injection armed: seed={plan.seed} "
+              f"alloc_fail_rate={plan.alloc_fail_rate} "
+              f"step_error_rate={plan.step_error_rate} "
+              f"cancel_frac={args.cancel_frac} watchdog={args.watchdog}")
+    eng, out, cancel_at = run_engine(args, packed, cfg, ecfg, prompts,
+                                     device)
     s = eng.stats
-    print(f"engine: {s.steps} steps, decode {s.decode_tok_s:.1f} tok/s, "
-          f"batch occupancy {s.mean_occupancy:.2f}, evictions {s.evictions}")
+    print(f"engine(tp={s.tp}): {s.steps} steps, decode "
+          f"{s.decode_tok_s:.1f} tok/s, batch occupancy "
+          f"{s.mean_occupancy:.2f}, evictions {s.evictions}")
     if args.async_loop:
         print(f"async loop: {s.lookahead_steps} lookahead dispatches, host "
               f"gap {s.host_gap_s * 1e3:.1f}ms, overlap "
@@ -196,8 +216,11 @@ def parse_args(argv=None):
     ap.add_argument("--requests", type=int, default=4,
                     help="engine mode: number of staggered requests")
     ap.add_argument("--tp", type=int, default=1,
-                    help="engine mode: tensor-parallel degree (not ported: "
-                         "only 1)")
+                    help="engine mode: tensor-parallel ranks")
+    ap.add_argument("--dist-backend", default="nccl",
+                    choices=["nccl", "gloo"],
+                    help="engine mode: torch.distributed backend of the "
+                         "--tp ranks (nccl needs one device per rank)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="engine mode: radix prefix cache over ref-counted "
                          "copy-on-write pages")
@@ -231,10 +254,22 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    rank = 0
+    if args.tp > 1:
+        if not args.engine:
+            raise SystemExit("--tp requires --engine")
+        joined = tdist.launcher_ranks(
+            "repro_torch.launch.serve_batched",
+            sys.argv[1:] if argv is None else list(argv), args.tp,
+            args.dist_backend, args.device)
+        if joined is None:  # the ranks ran, rank 0's output printed
+            return
+        rank, device = joined
+    else:
+        device = resolve_device(args.device)
     base, params, gen = demo_model(args.arch, device)
     if args.engine:
-        return engine_demo(args, base, params, device)
+        return engine_demo(args, base, params, device, rank)
     tokens = torch.randint(0, base.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device, dtype=torch.int32)
 

@@ -223,7 +223,7 @@ def apply(params, spec: AttnSpec, x, positions, sp_cfg: SparsityConfig,
             kd, vd = cache["k"], cache["v"]
         out = _decode_sdpa(spec, q, kd, vd, kv_len + 1)
     out = out.reshape(b, s, spec.q_dim)
-    return sl.apply(params["wo"], out, sp_cfg), cache
+    return sl.apply(params["wo"], out, sp_cfg, reduce_out=True), cache
 
 
 def make_cache(spec: AttnSpec, batch: int, max_len: int,
@@ -387,7 +387,8 @@ def paged_prefill_chunk(params, spec: AttnSpec, x, positions,
     kv_len0 = (start + 1).to(torch.int32).reshape(1).expand(b)
     out = pool_attend(spec, q, pool, page_table, kv_len0, sp_cfg,
                       chunk_start=start)
-    return sl.apply(params["wo"], out.reshape(b, c, spec.q_dim), sp_cfg), pool
+    return sl.apply(params["wo"], out.reshape(b, c, spec.q_dim), sp_cfg,
+                    reduce_out=True), pool
 
 
 def paged_decode_step(params, spec: AttnSpec, x, sp_cfg: SparsityConfig,
@@ -407,7 +408,8 @@ def paged_decode_step(params, spec: AttnSpec, x, sp_cfg: SparsityConfig,
                   v_new[:, 0])
 
     out = pool_attend(spec, q, pool, page_table, kv_len + 1, sp_cfg)
-    return sl.apply(params["wo"], out.reshape(b, 1, spec.q_dim), sp_cfg), pool
+    return sl.apply(params["wo"], out.reshape(b, 1, spec.q_dim), sp_cfg,
+                    reduce_out=True), pool
 
 
 def paged_verify_step(params, spec: AttnSpec, x, sp_cfg: SparsityConfig,
@@ -438,4 +440,5 @@ def paged_verify_step(params, spec: AttnSpec, x, sp_cfg: SparsityConfig,
                   v_new.reshape((b * c,) + tuple(v_new.shape[2:])))
 
     out = pool_attend(spec, q, pool, page_table, kv_len + 1, sp_cfg)
-    return sl.apply(params["wo"], out.reshape(b, c, spec.q_dim), sp_cfg), pool
+    return sl.apply(params["wo"], out.reshape(b, c, spec.q_dim), sp_cfg,
+                    reduce_out=True), pool

@@ -92,14 +92,18 @@ def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int,
 
 def swiglu(params, x: torch.Tensor, cfg: SparsityConfig) -> torch.Tensor:
     """Gate/up/down MLP; with ``cfg.fuse_epilogue`` the SiLU rides the gate
-    projection's kernel epilogue instead of a separate pass."""
+    projection's kernel epilogue instead of a separate pass.  Under tensor
+    parallelism gate/up are column-parallel (the SiLU stays on local
+    columns) and down is row-parallel: ``reduce_out`` all-reduces its
+    output."""
     if cfg.fuse_epilogue:
         g = sl.apply(params["w_gate"], x, cfg, activation="silu")
         u = sl.apply(params["w_up"], x, cfg)
-        return sl.apply(params["w_down"], g * u, cfg)
+        return sl.apply(params["w_down"], g * u, cfg, reduce_out=True)
     g = sl.apply(params["w_gate"], x, cfg)
     u = sl.apply(params["w_up"], x, cfg)
-    return sl.apply(params["w_down"], g * torch.sigmoid(g) * u, cfg)
+    return sl.apply(params["w_down"], g * torch.sigmoid(g) * u, cfg,
+                    reduce_out=True)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int,

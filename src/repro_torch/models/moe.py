@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.core import masks, packer
 from repro_torch.core.linear import SparsityConfig
+from repro_torch.sharding import tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +178,11 @@ def apply(params, spec: MoESpec, x: torch.Tensor,
     y = torch.zeros((g, tg, d), dtype=dt, device=dev)
     for j in range(k):
         y = y + picked[:, :, j]
+    # tensor parallelism: the expert hidden F is sharded, so each rank's
+    # y is a partial sum; routing, gates and the combine are the same on
+    # every rank (the router is replicated), so the one all-reduce rides
+    # the combined output, in fp32 as ``linear.apply`` sums its partials
+    y = tp.reduce(y.to(torch.float32)).to(dt) if tp.size() > 1 else y
     return y.reshape(b, s, d)
 
 

@@ -6,7 +6,10 @@ plus an inter-chunk linear state recurrence, here a Python loop over the
 chunks (JAX scans them); decode is an O(1) per-token state update.  The
 projections route through ``core.linear`` so SlideSparse covers them; the
 scan itself is plain torch, as the JAX package keeps it outside Pallas.
-With one shard, JAX's ``tp.rmsnorm`` over d_inner is a plain RMSNorm.
+Under tensor parallelism the SSD heads shard over the ranks
+(``SSMSpec.shards``): d_inner and the heads are the local shard's, the
+gated norm over d_inner all-reduces its sum of squares (``tp.rmsnorm``)
+and ``wo`` is row-parallel.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.core import linear as sl
 from repro_torch.core.linear import SparsityConfig
-from . import layers
+from repro_torch.sharding import tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,10 +33,13 @@ class SSMSpec:
     expand: int = 2
     head_dim: int = 64
     chunk: int = 256
+    # tensor-parallel ranks the heads shard over: the spec then describes
+    # the local shard (``transformer.ssm_spec`` fills it from the context)
+    shards: int = 1
 
     @property
     def d_inner(self):
-        return self.expand * self.d_model
+        return self.expand * self.d_model // self.shards
 
     @property
     def num_heads(self):
@@ -200,9 +206,10 @@ def apply(params, spec: SSMSpec, x: torch.Tensor, sp_cfg: SparsityConfig,
         new_cache = {"conv": new_conv, "ssd": h_new}
     y = y + xh * params["D"][:, None]
     y = y.reshape(bsz, s, spec.d_inner).to(x.dtype)
-    # gated RMSNorm (Mamba-2 norm_before_gate) bounds the SSD magnitude
-    g = layers.rmsnorm(params["norm"], y * F.silu(z))
-    return sl.apply(params["wo"], g, sp_cfg), new_cache
+    # gated RMSNorm (Mamba-2 norm_before_gate) bounds the SSD magnitude;
+    # d_inner is the sharded axis, so the mean of squares is global
+    g = tp.rmsnorm(params["norm"], y * F.silu(z))
+    return sl.apply(params["wo"], g, sp_cfg, reduce_out=True), new_cache
 
 
 def make_cache(spec: SSMSpec, batch: int, dtype=torch.float32, device=None):

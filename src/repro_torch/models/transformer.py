@@ -33,25 +33,38 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import linear as sl
+from repro_torch.sharding import tp
 from . import attention, layers, moe, ssm
 
 
 def attn_spec(cfg: ModelConfig, kind: str) -> attention.AttnSpec:
+    """Attention spec; under an active tensor-parallel context it
+    describes the local shard: heads and KV heads divided by the TP degree
+    (head-parallel attention and KV pool), head_dim and the GQA ratio
+    kept."""
+    shards = tp.size()
     return attention.AttnSpec(
-        d_model=cfg.d_model, num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+        d_model=cfg.d_model, num_heads=cfg.num_heads // shards,
+        num_kv_heads=cfg.num_kv_heads // shards,
+        head_dim=cfg.resolved_head_dim,
         rope_theta=cfg.rope_theta, causal=True,
         sliding_window=cfg.sliding_window if kind == "swa" else None,
         m_rope=cfg.m_rope)
 
 
 def ssm_spec(cfg: ModelConfig) -> ssm.SSMSpec:
+    """SSM spec; under tensor parallelism the SSD heads shard over the
+    ranks (``shards``), d_inner and the heads shrinking to the local
+    shard."""
     return ssm.SSMSpec(d_model=cfg.d_model, d_state=cfg.ssm_state,
                        d_conv=cfg.ssm_conv, expand=cfg.ssm_expand,
-                       head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk)
+                       head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk,
+                       shards=tp.size())
 
 
 def moe_spec(cfg: ModelConfig) -> moe.MoESpec:
+    """MoE spec: d_ff stays whole; under tensor parallelism the expert
+    stacks arrive sliced on F and the block reads F from their shapes."""
     return moe.MoESpec(d_model=cfg.d_model, d_ff=cfg.d_ff,
                        num_experts=cfg.moe_num_experts, top_k=cfg.moe_top_k,
                        capacity_factor=cfg.moe_capacity_factor,
@@ -318,7 +331,9 @@ def make_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     pages [page_size, KVH, hd] and the spare page that takes dropped
     writes (``attention.make_paged_pool``), one logical page id
     addressing the same slot in every layer; per SSM layer the recurrent
-    state of each of ``max_batch`` slots (``ssm.make_cache``)."""
+    state of each of ``max_batch`` slots (``ssm.make_cache``).  Under an
+    active tensor-parallel context each is the rank's shard: KVH/tp heads
+    per page, the SSM state at d_inner/tp and heads/tp."""
     kv = getattr(torch, cfg.kv_cache_dtype)
     device = resolve_device(device)
     def layer(kind):

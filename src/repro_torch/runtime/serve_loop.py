@@ -17,11 +17,24 @@ by ``faults.FaultInjector`` meet bounded step retries (§12).
 ``async_loop`` is JAX's overlapped loop (DESIGN.md §15): the host applies
 step N's tokens while the device runs step N+1.
 
-Not ported yet (raises ``NotImplementedError``, ROADMAP A.5): tensor
-parallelism.
+Tensor parallelism (``EngineConfig.tp = N``, DESIGN.md §9): the engine
+runs in each of N ``torch.distributed`` ranks (``sharding.dist`` starts
+them), each holding only its shard of the weights (column- / row-parallel
+linears, ``sharding.tp.shard_params``) and of the paged KV pool (KVH/N
+heads) and SSM state; the steps run the same kernels on the local shapes
+inside ``tp.activate``, with one all-reduce after each row-parallel
+projection and greedy ids from ``tp.argmax_tokens``, so the streams are
+the single-rank engine's.  The host scheduler runs in every rank; its
+decisions depend only on the submitted traffic, the sampled ids (the
+same on every rank) and the seeded ``FaultPlan``, so the ranks issue
+their collectives in the same order.  A wall-clock deadline would not be
+the same on every rank and is refused under tp > 1.  TP steps run eager:
+a gloo collective is a host call, which a CUDA graph cannot capture
+(``captures`` reads 0).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -31,6 +44,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import linear as sl
@@ -42,6 +56,7 @@ from repro_torch.runtime.kv_cache import KVCacheManager, PagedKVConfig
 from repro_torch.runtime.scheduler import (DecodeBatch, PrefillChunk,
                                            Request, Scheduler, VerifyBatch,
                                            make_policy)
+from repro_torch.sharding import tp as tpmod
 
 
 @dataclasses.dataclass
@@ -145,8 +160,11 @@ class EngineConfig:
     ``faults`` (a ``faults.FaultPlan``) injects deterministic faults
     (§12); a failed step dispatch is retried up to ``step_retries`` times
     with a backoff of ``retry_backoff_s * 2**attempt`` (jittered), then
-    fails the decision's requests.  ``tp`` keeps the JAX name and must
-    stay 1 until tensor parallelism is ported."""
+    fails the decision's requests.  ``tp`` is the tensor-parallel degree
+    (DESIGN.md §9): the engine then runs in each of ``tp`` ranks of the
+    default ``torch.distributed`` group.  Page counts are per shard-
+    replicated table: every rank holds the same ``num_pages`` page
+    structure, each page carrying its KVH/tp heads."""
     max_batch: int = 4        # decode slots
     page_size: int = 8        # tokens per KV page
     num_pages: int = 64       # physical pages per attention layer
@@ -165,17 +183,11 @@ class EngineConfig:
     retry_backoff_s: float = 0.0  # backoff base between step retries
     faults: Any = None        # faults.FaultPlan: deterministic injection
 
-    def __post_init__(self):
-        if self.tp != 1:
-            raise NotImplementedError(
-                f"EngineConfig tp={self.tp}: tensor parallelism is not "
-                "ported yet (ROADMAP A.5)")
-
     def kv_config(self) -> PagedKVConfig:
         return PagedKVConfig(page_size=self.page_size,
                              num_pages=self.num_pages,
                              max_batch=self.max_batch,
-                             max_seq_len=self.max_seq_len)
+                             max_seq_len=self.max_seq_len, tp=self.tp)
 
 
 @dataclasses.dataclass
@@ -209,6 +221,7 @@ class EngineStats:
     recompute_tokens: int = 0
     evictions: int = 0
     mean_occupancy: float = 0.0
+    tp: int = 1               # tensor-parallel degree of the run
     precision: str = "none"
     # speculative decoding (DESIGN.md §14)
     verify_steps: int = 0     # VerifyBatch steps executed
@@ -259,6 +272,11 @@ class EngineStats:
         total = (self.prefix_hit_tokens + self.prefill_tokens
                  + self.recompute_tokens)
         return self.prefix_hit_tokens / max(total, 1)
+
+    @property
+    def decode_tok_s_per_device(self) -> float:
+        """Decode throughput divided by the TP degree."""
+        return self.decode_tok_s / max(self.tp, 1)
 
 
 class _Step:
@@ -335,8 +353,9 @@ class ServeEngine:
     """Continuous-batching engine over the SlideSparse pipeline.
 
     Fixed-shape steps: a [1, prefill_chunk] prompt-chunk step, a
-    [max_batch] decode step, a [_cow_lanes] copy-on-write page-copy step
-    and, with ``speculate=K > 0``, a [max_batch, K+1] verify step.
+    [max_batch] decode step, on a stack with a page pool a [_cow_lanes]
+    copy-on-write page-copy step and, with ``speculate=K > 0``, a
+    [max_batch, K+1] verify step.
     Scheduling, drafting, accept/reject and page accounting stay on the
     host.  Every linear goes through ``linear.apply``
     (on the card the compressed-matmul kernel, or in ``mode="slided"`` the
@@ -370,6 +389,12 @@ class ServeEngine:
     share expert capacity, so an inactive decode lane (fed token 0, as
     JAX feeds it) takes capacity too.
 
+    With ``tp > 1`` the engine is one rank of a tensor-parallel group (see
+    the module docstring): ``params`` is the whole loaded tree, of which
+    the rank keeps only its shard; ``first_logits`` and the host-sample
+    path read the whole vocabulary (gathered).  It raises ValueError
+    unless ``torch.distributed`` is initialized with world size ``tp``.
+
     ``_eager`` (private) keeps a CUDA engine from capturing: the eager
     steps the graphs are held against."""
 
@@ -381,6 +406,22 @@ class ServeEngine:
         self.ecfg = ec = ecfg or EngineConfig()
         if cfg.is_encoder_decoder:
             raise NotImplementedError("paged engine is decoder-only")
+        self._group = None
+        if ec.tp > 1:
+            if not (dist.is_available() and dist.is_initialized()):
+                raise ValueError(
+                    f"tp={ec.tp} needs torch.distributed initialized with "
+                    f"world size {ec.tp}, one process per rank "
+                    "(sharding.dist.launch starts them); no process group "
+                    "is initialized")
+            if dist.get_world_size() != ec.tp:
+                raise ValueError(
+                    f"tp={ec.tp} needs a process group of world size "
+                    f"{ec.tp}, not {dist.get_world_size()}")
+            tpmod.validate(cfg, ec.tp)
+            self._group = dist.group.WORLD
+            # each rank keeps only its shard from here on
+            params = tpmod.shard_params(params, cfg, dist.get_rank(), ec.tp)
         self.device = resolve_device(device)
         self.params, self.cfg = params, cfg
         if ec.prefix_cache and cfg.uses_ssm:
@@ -397,7 +438,8 @@ class ServeEngine:
             raise ValueError(f"speculate={ec.speculate} must be >= 0")
         # prefix-cache entries are keyed to the exact serving recipe
         namespace = (f"{cfg.name}|{cfg.sparsity.recipe.name}"
-                     f"|kv={cfg.kv_cache_dtype}|ps={ec.page_size}")
+                     f"|kv={cfg.kv_cache_dtype}|tp={ec.tp}"
+                     f"|ps={ec.page_size}")
         self.injector = (fl.FaultInjector(ec.faults)
                          if ec.faults is not None else None)
         self.kv = KVCacheManager(ec.kv_config(), namespace=namespace,
@@ -415,13 +457,16 @@ class ServeEngine:
                                watchdog=ec.watchdog,
                                speculate=ec.speculate,
                                draft_source=self.draft_source)
-        self.cache = M.make_paged_cache(cfg, ec.num_pages, ec.page_size,
-                                        ec.max_batch, self.device)
+        with self._tp():  # the rank's shard of the pools and SSM state
+            self.cache = M.make_paged_cache(cfg, ec.num_pages, ec.page_size,
+                                            ec.max_batch, self.device)
         self.completions: dict[int, Completion] = {}
         self.first_logits: dict[int, torch.Tensor] = {}
         self._prompts: dict[int, list[int]] = {}
-        self.stats = EngineStats(precision=cfg.sparsity.recipe.name)
-        self._graphed = self.device.type == "cuda" and not _eager
+        self.stats = EngineStats(tp=ec.tp, precision=cfg.sparsity.recipe.name)
+        # a TP step's collectives are host calls: its steps stay eager
+        self._graphed = (self.device.type == "cuda" and not _eager
+                         and ec.tp == 1)
         maxp = ec.kv_config().max_pages_per_seq
         bmax = ec.max_batch
         # one COW call copies a decode batch's write pages (<= 1 per slot)
@@ -436,10 +481,12 @@ class ServeEngine:
                              self._prefill_body, self.device),
             "decode": _Step({"tokens": (bmax,), "page_table": (bmax, maxp),
                              "kv_len": (bmax,), "active": (bmax,)},
-                            self._decode_body, self.device),
-            "cow": _Step({"src": (self._cow_lanes,),
-                          "dst": (self._cow_lanes,)}, self._cow_body,
-                         self.device)}
+                            self._decode_body, self.device)}
+        if any(kind != "ssm" for kind in cfg.unit_pattern):
+            # a stack with no page pool has no pages to copy
+            self._steps["cow"] = _Step({"src": (self._cow_lanes,),
+                                        "dst": (self._cow_lanes,)},
+                                       self._cow_body, self.device)
         if ec.speculate > 0:
             self._steps["verify"] = _Step(
                 {"tokens": (bmax, self._verify_lanes),
@@ -456,31 +503,48 @@ class ServeEngine:
 
     @property
     def captures(self) -> dict[str, int]:
-        """CUDA graph captures per step (0 on the CPU or when eager)."""
+        """CUDA graph captures per step (0 on the CPU, when eager and under
+        tp > 1)."""
         return {name: st.captures for name, st in self._steps.items()}
 
+    def _tp(self):
+        """The tensor-parallel context of this rank's steps (none at
+        tp = 1)."""
+        if self._group is None:
+            return contextlib.nullcontext()
+        return tpmod.activate(self._group)
+
+    def _whole(self, logits: torch.Tensor) -> torch.Tensor:
+        """The whole vocabulary of a step's (vocab-sharded) logits."""
+        with self._tp():
+            return tpmod.gather_last(logits)
+
     def _prefill_body(self, inp):
-        logits, _ = M.paged_prefill_chunk(
-            self.params, self.cfg, inp["tokens"], self.cache,
-            inp["page_table"], inp["start"], inp["real_len"], inp["slot"],
-            inp["reset"] != 0, self.ecfg.page_size)
-        return torch.argmax(logits, -1).to(torch.int32), logits
+        with self._tp():
+            logits, _ = M.paged_prefill_chunk(
+                self.params, self.cfg, inp["tokens"], self.cache,
+                inp["page_table"], inp["start"], inp["real_len"],
+                inp["slot"], inp["reset"] != 0, self.ecfg.page_size)
+            return tpmod.argmax_tokens(logits), logits
 
     def _decode_body(self, inp):
-        logits, _ = M.paged_decode_step(
-            self.params, self.cfg, inp["tokens"], self.cache,
-            inp["page_table"], inp["kv_len"], inp["active"] != 0,
-            self.ecfg.page_size)
-        return torch.argmax(logits, -1).to(torch.int32), logits
+        with self._tp():
+            logits, _ = M.paged_decode_step(
+                self.params, self.cfg, inp["tokens"], self.cache,
+                inp["page_table"], inp["kv_len"], inp["active"] != 0,
+                self.ecfg.page_size)
+            return tpmod.argmax_tokens(logits), logits
 
     def _verify_body(self, inp):
-        logits, _ = M.paged_verify_step(
-            self.params, self.cfg, inp["tokens"], self.cache,
-            inp["page_table"], inp["kv_len"], inp["real_len"],
-            inp["active"] != 0, self.ecfg.page_size)
-        return torch.argmax(logits, -1).to(torch.int32), logits
+        with self._tp():
+            logits, _ = M.paged_verify_step(
+                self.params, self.cfg, inp["tokens"], self.cache,
+                inp["page_table"], inp["kv_len"], inp["real_len"],
+                inp["active"] != 0, self.ecfg.page_size)
+            return tpmod.argmax_tokens(logits), logits
 
     def _cow_body(self, inp):
+        # per-rank elementwise on the head-sharded pools
         M.paged_copy_pages(self.cfg, self.cache, inp["src"], inp["dst"])
 
     def _dispatch(self, name: str, **inputs) -> _Step:
@@ -559,7 +623,7 @@ class ServeEngine:
         the spare page."""
         if not pairs:
             return
-        st, n = self._steps["cow"], self._cow_lanes
+        st, n = self._steps["cow"], self._cow_lanes  # pairs need a pool
         for i in range(0, len(pairs), n):
             src = np.zeros((n,), np.int32)
             dst = np.full((n,), self.ecfg.num_pages, np.int32)
@@ -628,8 +692,14 @@ class ServeEngine:
                deadline_s: float | None = None) -> int:
         """Enqueue a request.  Admission is typed, never an exception: an
         oversized prompt or a full bounded queue produces a REJECTED
-        completion."""
+        completion.  Under tp > 1 every rank submits the same requests in
+        the same order, and ``deadline_s`` is refused (each rank's clock
+        would time the request out at its own step)."""
         rid = rid if rid is not None else len(self._prompts)
+        if deadline_s is not None and self.ecfg.tp > 1:
+            raise ValueError("deadline_s is a wall-clock deadline, which "
+                             "the ranks of a tp > 1 engine would not agree "
+                             "on; use deadline_steps")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         if not prompt:
@@ -809,14 +879,15 @@ class ServeEngine:
         self.sched.completed_prefill(decision)
         if not seq.prefilling:  # prompt done -> first token
             # the static output is overwritten by the next chunk
-            self.first_logits[seq.rid] = logits[0].clone()
+            first = self._whole(logits[0])
+            self.first_logits[seq.rid] = first.clone()
             # mid-prompt chunks fetch nothing; the last one [1] int32,
             # or the logits row on the host-sample path
             if self.ecfg.device_sample:
                 tok = int(self._fetch(self._to_host(ids))[0])
             else:
                 tok = int(np.argmax(self._fetch(
-                    self._to_host(logits[0].float()))))
+                    self._to_host(first.float()))))
             self.sched.append_token(seq, tok)
 
     def _verify_batch(self, decision: VerifyBatch) -> None:
@@ -837,7 +908,7 @@ class ServeEngine:
             argmax_all = self._fetch(self._to_host(ids))    # [B, K+1] int32
         else:
             argmax_all = np.argmax(self._fetch(self._to_host(
-                logits.float())), axis=-1)
+                self._whole(logits).float())), axis=-1)
         results = []
         for seq, drft in zip(decision.seqs, decision.drafts):
             # lane i's logits predict the token after lane i; lanes past
@@ -876,8 +947,8 @@ class ServeEngine:
         if self.ecfg.device_sample:
             toks = self._fetch(self._to_host(ids))          # [B] int32
         else:
-            toks = np.argmax(self._fetch(self._to_host(logits.float())),
-                             axis=-1)
+            toks = np.argmax(self._fetch(self._to_host(
+                self._whole(logits).float())), axis=-1)
         for seq in decision.seqs:
             self.sched.append_token(seq, int(toks[seq.slot]))
         return False

@@ -1,0 +1,334 @@
+"""Tensor-parallel serving: context, collectives and shard functions (port
+of ``repro.sharding.tp``, DESIGN.md §9).
+
+JAX runs the engine's steps under ``shard_map`` over a 1-D ``('tp',)``
+mesh of devices.  The port runs one process per rank of a
+``torch.distributed`` process group, and the ranks are the mesh: each rank
+holds only its shard of the weights and of the paged KV / SSM cache, and
+runs the same kernels as a single-device engine on its local shapes.
+
+* :class:`TPContext` / :func:`activate`: a thread-local marker that the
+  surrounding code runs as one rank's share of a step.  Model code stays
+  rank-agnostic: :func:`reduce` (the row-parallel all-reduce),
+  :func:`reduce_max` and the spec helpers in ``models.transformer`` are
+  the identity / trivial without an active context.
+* :func:`shard_params`: one rank's slice of a loaded parameter tree, by
+  JAX's Megatron role table:
+
+  ==================  =========================================  =========
+  role                parameters                                 sharded dim
+  ==================  =========================================  =========
+  column-parallel     wq wk wv wx wz wdt w_gate w_up lm_head     out
+  row-parallel        wo w_down                                  in (K)
+  replicated          embed router wB wC norms(d_model)          --
+  head-sharded        conv_w A_log dt_bias D mixer-norm g        heads/dI
+  ==================  =========================================  =========
+
+  Compressed operands (``values`` / ``indices``) slice like their dense
+  ``w``: the layout is group-major, so a row-parallel K-slice is a
+  contiguous run of whole L-groups (``compressed.split_k``).  The slided
+  operand of the fused kernel (``sp_values`` / ``sp_meta``) is stored in
+  ``mma.sp`` fragment order, padded to 16 rows and 64 lifted columns, so
+  slicing it gives no shard: it is decoded to Phi(W), Phi(W) is sliced
+  (rows, or whole groups of gamma*L lifted columns), and each slice is
+  encoded again.
+* :func:`validate`: JAX's fail-fast divisibility checks and messages.
+* :func:`rmsnorm`: RMSNorm over a feature axis sharded across the ranks
+  (the SSM's gated norm over d_inner): the sum of squares is all-reduced.
+* :func:`argmax_tokens`: greedy ids from vocab-sharded logits, the lowest
+  global index winning ties, replicated on every rank.
+
+The paged KV pool is allocated per rank at KVH/tp heads and the SSM state
+at d_inner/tp and heads/tp (``models.transformer`` under an active
+context); the page structure and page table are the same on every rank.
+Every collective counts one in ``_COUNTS`` (``collective_count``).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+_STATE = threading.local()
+_COUNTS = {"collectives": 0}
+
+# parent-dict names -> role (see the module docstring's table)
+_COL_PARALLEL = {"wq", "wk", "wv", "wx", "wz", "wdt", "w_gate", "w_up",
+                 "lm_head"}
+_ROW_PARALLEL = {"wo", "w_down"}
+_REPLICATED = {"embed", "router", "wB", "wC"}
+# per-head / per-feature leaves sharded on their trailing dim
+_HEAD_SHARDED_LEAVES = {"conv_w", "A_log", "dt_bias", "D"}
+
+
+@dataclasses.dataclass(frozen=True)
+class TPContext:
+    """The active tensor-parallel context: the process group, its size and
+    this process's rank in it."""
+    group: Any = None
+    size: int = 1
+    rank: int = 0
+
+
+def current() -> TPContext | None:
+    return getattr(_STATE, "ctx", None)
+
+
+def size() -> int:
+    """TP degree of the active context (1 without one)."""
+    ctx = current()
+    return ctx.size if ctx is not None else 1
+
+
+def rank() -> int:
+    """This process's rank in the active context (0 without one)."""
+    ctx = current()
+    return ctx.rank if ctx is not None else 0
+
+
+@contextlib.contextmanager
+def activate(group=None):
+    """Mark the dynamic extent as one rank's share of a step over
+    ``group`` (default: the default process group)."""
+    prev = current()
+    _STATE.ctx = TPContext(group=group, size=dist.get_world_size(group),
+                           rank=dist.get_rank(group))
+    try:
+        yield
+    finally:
+        _STATE.ctx = prev
+
+
+def collective_count() -> int:
+    return _COUNTS["collectives"]
+
+
+def reset_counts() -> None:
+    _COUNTS["collectives"] = 0
+
+
+def _all_reduce(x: torch.Tensor, op, ctx: TPContext) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=op, group=ctx.group)
+    _COUNTS["collectives"] += 1
+    return out
+
+
+def _all_gather(x: torch.Tensor, ctx: TPContext) -> list[torch.Tensor]:
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(ctx.size)]
+    dist.all_gather(parts, x, group=ctx.group)
+    _COUNTS["collectives"] += 1
+    return parts
+
+
+def reduce(x: torch.Tensor) -> torch.Tensor:
+    """Row-parallel all-reduce (sum over the ranks); the identity without
+    an active context."""
+    ctx = current()
+    if ctx is None or ctx.size == 1:
+        return x
+    return _all_reduce(x, dist.ReduceOp.SUM, ctx)
+
+
+def reduce_max(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise max over the ranks; the identity without an active
+    context.  ``linear.apply`` turns a row-parallel projection's per-shard
+    per-token absmax into the global absmax with it, so every rank
+    quantizes to the values and scale of the unsharded run."""
+    ctx = current()
+    if ctx is None or ctx.size == 1:
+        return x
+    return _all_reduce(x, dist.ReduceOp.MAX, ctx)
+
+
+def gather_last(x: torch.Tensor) -> torch.Tensor:
+    """The whole of a tensor sharded on its last dim (vocab-sharded
+    logits), on every rank; the identity without an active context."""
+    ctx = current()
+    if ctx is None or ctx.size == 1:
+        return x
+    return torch.cat(_all_gather(x, ctx), dim=-1)
+
+
+def argmax_tokens(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy int32 ids from (possibly vocab-sharded) logits ``[..., V/tp]``
+    (``[B, V/tp]`` decode and ``[B, K+1, V/tp]`` verify logits alike): a
+    local argmax and max, then one all-gather of each in rank order and an
+    argmax across the ranks.  Ties go to the lowest global vocab index, as
+    ``jnp.argmax`` on the whole logits: ``torch.argmax`` picks the first
+    maximal index within a shard and the lowest rank across shards."""
+    ctx = current()
+    if ctx is None or ctx.size == 1:
+        return torch.argmax(logits, -1).to(torch.int32)
+    vloc = logits.shape[-1]
+    loc = torch.argmax(logits, -1)
+    best = torch.take_along_dim(logits, loc[..., None], dim=-1)[..., 0]
+    gidx = (loc + ctx.rank * vloc).to(torch.int32)
+    allv = torch.stack(_all_gather(best, ctx))         # [tp, ...] maxima
+    alli = torch.stack(_all_gather(gidx, ctx))         # [tp, ...] indices
+    shard = torch.argmax(allv, 0)                      # ties: lowest rank
+    return torch.take_along_dim(alli, shard[None], dim=0)[0]
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over a feature axis sharded across the ranks: the mean of
+    squares is the all-reduced sum of the local sums over the global
+    width.  Without an active context this is ``layers.rmsnorm``."""
+    ctx = current()
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    if ctx is None or ctx.size == 1:
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        ss = reduce(torch.sum(xf * xf, dim=-1, keepdim=True))
+        ms = ss / (x.shape[-1] * ctx.size)
+    xf = xf * torch.rsqrt(ms + eps)
+    return (xf * params["g"]).to(dt)
+
+
+# ----------------------------------------------------------- shard functions
+def shard_dim(names: list[str], ndim: int) -> int | None:
+    """The dim JAX's role table shards for a leaf at the path ``names``
+    (the dict keys from the root; list indices are ignored), or None when
+    the leaf is replicated.  ``_leaf_spec`` of ``repro.sharding.tp``."""
+    last = names[-1]
+    if any(n in _REPLICATED for n in names):
+        return None
+    if last in _HEAD_SHARDED_LEAVES:
+        return ndim - 1
+    if last == "g":
+        # the mixer's gated norm spans the sharded d_inner; every other
+        # norm spans the replicated d_model residual stream
+        return ndim - 1 if "mixer" in names and "norm" in names else None
+    parent = names[-2] if len(names) >= 2 else ""
+    if parent in _COL_PARALLEL:
+        return (ndim - 2) % ndim          # out; s_w [out, 1] too
+    if parent in _ROW_PARALLEL:
+        return None if last == "s_w" else ndim - 1
+    return None
+
+
+def _cut(t: torch.Tensor, dim: int, rank_: int, tp: int,
+         names: list[str]) -> torch.Tensor:
+    """Rank ``rank_``'s contiguous block of ``t`` along ``dim``, in storage
+    of its own (the full tensor can be freed)."""
+    n = t.shape[dim]
+    if n % tp:
+        raise ValueError(f"TP={tp} cannot shard {'/'.join(names)} shape "
+                         f"{tuple(t.shape)} on dim {dim}")
+    step = n // tp
+    return t.narrow(dim, rank_ * step, step).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _in_features(names: list[str], mixer: dict | None, cfg) -> int:
+    """K of the projection at ``names``: the residual width for a
+    column-parallel one, else the width its row-parallel input has."""
+    name = names[-1]
+    if name in _COL_PARALLEL:
+        return cfg.d_model
+    if name == "w_down":
+        return cfg.d_ff
+    if mixer is not None and "wx" in mixer:          # the SSM block's wo
+        return cfg.ssm_expand * cfg.d_model
+    return cfg.num_heads * cfg.resolved_head_dim
+
+
+def _shard_operand(node: dict, names: list[str], mixer, cfg, rank_: int,
+                   tp: int) -> dict:
+    """One rank's share of a projection stored as the fused slided
+    kernel's 2:4 operand: Phi(W) decoded, sliced (rows for a column-
+    parallel projection; whole groups of gamma*L lifted columns for a
+    row-parallel one, since Phi is group-major) and encoded again.  ``s_w``
+    follows the rows and stays whole on a row-parallel projection."""
+    from repro_torch.kernels import fused_slide_matmul as fsm
+
+    name = names[-1]
+    if name not in _COL_PARALLEL and name not in _ROW_PARALLEL:
+        return node
+    sp = cfg.sparsity
+    packed = sp.recipe.packed_weights
+    gk = fsm.lifted_width(_in_features(names, mixer, cfg),
+                          sp.decomposition().source.family_n)
+    ws = fsm.dense_from_operand(node["sp_values"], node["sp_meta"],
+                                node["s_w"].shape[0], gk, packed=packed)
+    out = {k: v for k, v in node.items() if k not in ("sp_values", "sp_meta")}
+    if name in _COL_PARALLEL:
+        ws = _cut(ws, 0, rank_, tp, names + ["sp_values"])
+        out["s_w"] = _cut(node["s_w"], 0, rank_, tp, names + ["s_w"])
+    else:
+        # K/tp holds whole L-groups (validate): the byte slices of 'w4'
+        # nibbles stay aligned
+        ws = _cut(ws, 1, rank_, tp, names + ["sp_values"])
+    out["sp_values"], out["sp_meta"] = fsm.sparse_operand(ws, packed=packed)
+    return out
+
+
+def shard_params(params, cfg, rank_: int, tp: int):
+    """Rank ``rank_``'s shard of a loaded (packed or dense) parameter tree:
+    each sharded leaf's contiguous block in storage of its own, each
+    replicated leaf the same tensor.  Raises ValueError on a sharded dim
+    that ``tp`` does not divide, as JAX's ``serve_param_specs`` does: there
+    is no silent replication."""
+    if tp == 1:
+        return params
+
+    def walk(node, names, mixer):
+        if isinstance(node, list):
+            return [walk(v, names + [str(i)], mixer)
+                    for i, v in enumerate(node)]
+        if isinstance(node, dict):
+            if "sp_values" in node:
+                return _shard_operand(node, names, mixer, cfg, rank_, tp)
+            inner = node if names and names[-1] == "mixer" else mixer
+            return {k: walk(v, names + [k], inner) for k, v in node.items()}
+        if not torch.is_tensor(node):
+            return node
+        dim = shard_dim(names, node.dim())
+        return node if dim is None else _cut(node, dim, rank_, tp, names)
+
+    return walk(params, [], None)
+
+
+# ------------------------------------------------------------ validation
+def validate(cfg, tp: int) -> None:
+    """Fail fast on configs the TP partitioning cannot express: attention
+    heads and KV heads divide tp (head-parallel KV pool), d_ff and vocab
+    divide tp, SSM heads divide tp, and, for a packed ``compressed`` /
+    ``slided`` model, each row-parallel K shard holds whole L-groups."""
+    if tp <= 1:
+        return
+    errs = []
+    if cfg.num_heads % tp:
+        errs.append(f"num_heads={cfg.num_heads}")
+    if cfg.num_kv_heads % tp:
+        errs.append(f"num_kv_heads={cfg.num_kv_heads}")
+    if cfg.d_ff and cfg.d_ff % tp:
+        errs.append(f"d_ff={cfg.d_ff}")
+    if cfg.vocab_size % tp:
+        errs.append(f"vocab_size={cfg.vocab_size}")
+    if "ssm" in cfg.unit_pattern:
+        d_inner = cfg.ssm_expand * cfg.d_model
+        n_heads = d_inner // cfg.ssm_head_dim
+        if n_heads % tp:
+            errs.append(f"ssm heads={n_heads}")
+    sp = cfg.sparsity
+    if sp.pattern is not None and sp.mode in ("slided", "compressed"):
+        l = sp.pattern[1]
+        qdim = cfg.num_heads * cfg.resolved_head_dim
+        row_ks = [("attn wo", qdim), ("w_down", cfg.d_ff)]
+        if "ssm" in cfg.unit_pattern:
+            row_ks.append(("ssm wo", cfg.ssm_expand * cfg.d_model))
+        for name, k in row_ks:
+            # a layer is only packed when L divides its K (pack_params)
+            if k and k % l == 0 and (k // tp) % l:
+                errs.append(f"{name}: K/tp={k // tp} not a multiple of "
+                            f"L={l} (pattern group would straddle shards)")
+    if errs:
+        raise ValueError(f"config incompatible with tp={tp}: "
+                         + "; ".join(errs))

@@ -308,8 +308,17 @@ def test_scheduler_copy_makes_jax_decisions(seed):
 
 
 def test_engine_refuses_unported_features():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tserve.EngineConfig(tp=2)
+    # tensor parallelism is ported: the config constructs, and an engine
+    # at tp=2 needs a process group of world size 2, as JAX's engine needs
+    # tp devices (repro.sharding.tp.make_serve_mesh)
+    ecfg = tserve.EngineConfig(tp=2, **ECFG)
+    assert ecfg.tp == 2
+    assert not torch.distributed.is_initialized()
+    cfg = _tcfg("compressed", "int8")
+    params = tserve.pack_params(
+        TM.init(cfg, torch.Generator().manual_seed(0)), cfg)
+    with pytest.raises(ValueError, match="torch.distributed"):
+        tserve.ServeEngine(params, cfg, ecfg, device="cpu")
     assert tserve.EngineConfig(async_loop=True).async_loop
     # the engine features of the JAX engine construct
     plan = tfl.FaultPlan(seed=1, step_error_rate=0.1)

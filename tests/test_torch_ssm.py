@@ -16,7 +16,7 @@ threading through the paged engine, held against ``repro.models.ssm``.
   and an engine schedule that interleaves a decode step between two
   prefill chunks of one request emits the JAX engine's streams.
 * The engine refuses the prefix cache and speculation on SSM stacks, as
-  JAX's does.
+  JAX's does, and builds a copy-on-write step only over a page pool.
 * One-shot ``generate`` on mamba2 at smoke width emits JAX's ``generate``
   tokens, recipes ``none`` and ``int8`` (ROADMAP A.3).
 * JAX's ``test_paged_engine_hybrid_ssm_arch`` cell (red on the
@@ -234,6 +234,23 @@ def test_engine_refuses_features_on_ssm_stacks(arch, feature):
     dense = treg.smoke_config("granite-moe-3b-a800m")
     tserve.ServeEngine(TM.init(dense, torch.Generator().manual_seed(0)),
                        dense, tserve.EngineConfig(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("arch,cow", [(ARCH, False),
+                                      ("jamba-1.5-large-398b", True),
+                                      ("h2o-danube-3-4b", True)])
+def test_engine_builds_a_cow_step_only_over_a_page_pool(arch, cow):
+    """A stack with no attention layer has no page pool: its engine builds
+    no copy-on-write step (the empty graph a capture would warn about),
+    and warmup runs the steps that exist."""
+    cfg = treg.smoke_config(arch)
+    eng = tserve.ServeEngine(TM.init(cfg, torch.Generator().manual_seed(0)),
+                             cfg, tserve.EngineConfig(), device="cpu")
+    assert ("cow" in eng.captures) == cow
+    assert set(eng.captures) == {"prefill", "decode"} | (
+        {"cow"} if cow else set())
+    eng.warmup()
+    assert set(eng.captures.values()) == {0}  # the CPU runs eagerly
 
 
 @pytest.mark.parametrize("recipe", ["none", "int8"])
