@@ -166,9 +166,30 @@ Phases (any failed check exits nonzero):
    ``--dist-backend nccl`` refused on one card); tp = 2 vs tp = 1 eager
    decode tok/s, the
    collectives per decode step and the phase's time;
-12. a ``kernels`` JSON line (the five kernels, launches of the
+12. multi-device training (ROADMAP A.3): the single device's side here
+   (``train_loop.train`` of h2o-danube-3-4b at full width, MESH_LAYERS
+   layers, masked 6:8, bf16, int8 AdamW moments, 8 x 256 tokens, three
+   steps; the gradients of a batch with -1 labels); then four gloo ranks
+   sharing the card (``mesh_rank``): (a) ``train(mesh=...)`` over (data
+   2, model 2), the same three steps checkpointed (losses within
+   MESH_LOSS_RTOL, params within MESH_PARAM_RL2), each rank's resident
+   bytes of params + AdamW state against the logical total, seconds and
+   collectives a step, and the sharded step's gradients on the -1 batch
+   within MESH_GRAD_RL2 beside two planted faults that must exceed it
+   (one rank skips the data-parallel gradient sum; the loss is the mean
+   of the local means); (b) ``gpipe_apply`` over (stage 4), one danube
+   block a stage at fp32, 4 microbatches of 2 x 256, output and every
+   stage's gradients against the sequential run; (c)
+   ``compressed_crosspod_mean`` of a [10240, 3840] leaf over (pod 2,
+   data 2), bit-equal to the local recomputation, its int8 bytes on the
+   wire; B1-B5 launch no time; then (d) two ranks restore (a)'s
+   checkpoint onto ``elastic_mesh`` (data 1, model 2), through
+   ``restore`` given the mesh and through ``elastic.reshard``, every
+   leaf bit-equal to (a)'s final state; the phase's time;
+13. a ``kernels`` JSON line (the five kernels, launches of the
    h2o-danube-3-4b runs, and B3's act_absmax instance with the launches
-   of phase 11's slided run), the card line, and the final result line.
+   of phase 11's slided run; phase 12's zero launches), the card line,
+   and the final result line.
 
 It imports neither JAX nor the JAX package, and prints every table it
 measures on standard output.
@@ -3695,6 +3716,506 @@ def phase_tp(torch, card, ref, timer):
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+# (a) h2o-danube-3-4b at full width, depth cut to MESH_LAYERS, STE-masked
+# 6:8, bf16, AdamW with int8 moments (a 2.2 GB checkpoint for (d), not
+# the 5.6 GB fp32 moments would make), the launcher's 8 x 256 tokens,
+# MESH_STEPS steps, over (data 2, model 2): four gloo ranks on the card
+MESH_LAYERS, MESH_STEPS, MESH_LR = 2, 3, 3e-3
+MESH_RANKS, MESH_SHAPE = 4, (2, 2)
+MESH_WARM = 100                # the direct step's counter: rate scale 1
+# (a) gates, sharded vs single device in bf16: a sound step differs by
+# the rounding of half-batch bf16 gradients summed in fp32, a planted
+# fault by a whole gradient.  On an H100 80GB HBM3 (700 W) the sound run
+# read: losses 2.9e-5 relative (the -1 batch's 8.8e-8), params after
+# three steps 3.2e-4 (worst leaf), gradients 0.0106 (worst leaf); the
+# faults' gradients 0.493 (one rank skips the data-parallel sum) and
+# 0.317 (mean of the local means).  The gradient gate sits near the
+# geometric mean of 0.0106 and 0.317
+MESH_LOSS_RTOL = 1e-3          # each of the three losses, and the -1 batch's
+MESH_PARAM_RL2 = 3e-3          # worst leaf after three steps
+MESH_GRAD_RL2 = 5e-2           # worst leaf of the -1 batch's gradients
+# (b) GPipe at fp32 (TF32 off) vs the sequential run of the same blocks
+# on the whole batch (read 2.2e-6 and 5.7e-6 on the H100)
+GPIPE_OUT_RL2, GPIPE_GRAD_RL2 = 1e-5, 1e-4
+GPIPE_STAGES, GPIPE_MICRO, GPIPE_MB = 4, 4, 2
+COMP_SHAPE = (10240, 3840)     # (c) one w_gate / w_up gradient leaf
+MESH_TIMEOUT = 600
+
+
+def _mesh_setup(setup):
+    """The phase's config, global batch, sequence and compression shape:
+    full width on the card; ``setup["smoke"]`` shrinks them for a
+    rehearsal on CPU ranks."""
+    from repro_torch.configs import registry
+    if setup.get("smoke"):
+        return (_masked(registry.smoke_config("h2o-danube-3-4b")), 8, 32,
+                (64, 96))
+    return _full(MESH_LAYERS), TRAIN_BATCH, TRAIN_SEQ, COMP_SHAPE
+
+
+def _mesh_opt():
+    from repro_torch.optim import adamw
+    return adamw.AdamWConfig(lr=MESH_LR, state_dtype="int8")
+
+
+def _minus_one_batch(torch, cfg, b, s, device):
+    """A global batch whose -1 labels fall unevenly on the two data
+    slices (rows 0-3, 4-7): all of row 0, most of row 1, three of row 5."""
+    from repro_torch.data.pipeline import SyntheticLM
+    nb = SyntheticLM(cfg, b, s, seed=0, host_index=0,
+                     host_count=1).batch_at(7)
+    batch = {k: torch.from_numpy(v.copy()).to(device) for k, v in nb.items()}
+    batch["labels"][0] = -1
+    batch["labels"][1, s // 8:] = -1
+    batch["labels"][5, :3] = -1
+    return batch
+
+
+def _mesh_reference(torch, setup, root):
+    """The single-device side of (a), in this process (no process group,
+    so the pipeline builds the global batch): ``train_loop.train`` for
+    MESH_STEPS steps from seed 0, and the -1 batch's loss and gradients
+    at the seed-0 init.  Saved for rank 0 to compare with."""
+    from repro_torch import tree
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps, train_loop
+    cfg, b, s, _ = _mesh_setup(setup)
+    dev = torch.device(setup["device"])
+    t0 = time.time()
+    run = train_loop.train(cfg, _mesh_opt(), train_loop.TrainConfig(
+        steps=MESH_STEPS, global_batch=b, seq_len=s, seed=0, log_every=0),
+        device=dev)
+    ref = {"losses": run["losses"], "step_s": run["step_seconds"],
+           "params": [x.detach().cpu() for x in tree.leaves(run["params"])]}
+    del run
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    leaves = steps.trainable(params)
+    loss = M.loss_fn(params, cfg, _minus_one_batch(torch, cfg, b, s, dev))
+    ref["grads"] = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+    ref["loss_m1"] = float(loss.detach())
+    torch.save(ref, f"{root}/ref.pt")
+    log(f"(a) single device, {MESH_STEPS} steps: losses "
+        f"{[round(x, 5) for x in ref['losses']]}, step s "
+        f"{[round(x, 3) for x in ref['step_s']]}; the -1 batch's loss "
+        f"{ref['loss_m1']:.5f}; {time.time() - t0:.1f} s")
+
+
+def _replica(mesh, spec) -> float:
+    """1.0 on the one rank that counts a piece of ``spec`` (coordinate 0
+    on every axis the piece is replicated over), else 0.0."""
+    from repro_torch.sharding import rules
+    sharded = {a for d in spec for a in rules.axes_of(d)}
+    return float(all(mesh.coord(a) == 0 for a in mesh.axis_names
+                      if a not in sharded))
+
+
+def _mesh_rl2(torch, pieces, specs, mesh, wholes):
+    """The worst leaf's relative L2 between the whole leaves whose pieces
+    this rank holds and whole references (host tensors), with no gather:
+    each rank sums over its piece against the same cut of the reference
+    (one replica of each piece counting), then one all-reduce."""
+    from repro_torch.sharding import rules
+    sums = []
+    for x, sp, w in zip(pieces, specs, wholes):
+        ref = rules.cut(w, sp, mesh).to(mesh.device, torch.float64)
+        diff = x.detach().to(torch.float64) - ref
+        sums.append(torch.stack([(diff * diff).sum(), (ref * ref).sum()])
+                    * _replica(mesh, sp))
+    tot = mesh.all_reduce(torch.stack(sums), mesh.axis_names, "sum")
+    return float((tot[:, 0] / tot[:, 1]).sqrt().max())
+
+
+FP_PRIME = 2 ** 31 - 1
+
+
+def _fingerprints(torch, pieces, specs, mesh):
+    """An exact checksum of each whole leaf from this rank's pieces, the
+    same on any mesh: the sum over the leaf's elements of bits x (2 x flat
+    index + 1) modulo the prime 2^31 - 1 (products and sums stay inside
+    int64), one replica of each piece counting, summed over the ranks.
+    One element that differs always changes it."""
+    from repro_torch.sharding import rules
+    out = []
+    for x, sp in zip(pieces, specs):
+        whole = rules.global_shape(x.shape, sp, mesh)
+        idx = torch.zeros((), dtype=torch.int64, device=x.device)
+        stride = 1
+        for d in reversed(range(x.dim())):
+            ar = torch.arange(x.shape[d], dtype=torch.int64, device=x.device)
+            ar = (ar + rules.offset(sp, d, whole[d], mesh)) * stride
+            idx = idx + ar.view((-1,) + (1,) * (x.dim() - 1 - d))
+            stride *= whole[d]
+        bits = _bits(torch, x).view(x.shape).to(torch.int64) % FP_PRIME
+        w = (2 * idx + 1) % FP_PRIME
+        out.append((bits * w % FP_PRIME).sum() * int(_replica(mesh, sp)))
+    tot = mesh.all_reduce(torch.stack(out), mesh.axis_names, "sum")
+    return [int(v) % FP_PRIME for v in tot.tolist()]
+
+
+def _mesh_direct(torch, cfg, mesh, params, lay, batch, ref, fault):
+    """One sharded step's loss and gradients on the -1 batch, sound or
+    under a planted fault: one rank skips the data-parallel gradient sum
+    (its collectives still run), or the loss is the mean of the local
+    means.  Read against the single device's on every rank (the
+    gradients' sums all-reduced, no gather)."""
+    from repro_torch.runtime import steps
+    from repro_torch.sharding import rules
+    orig_rg, orig_w = steps.reduce_grad, steps.loss_weight
+    if fault == "skip_dp_sum":
+        def faulty(g, spec, m):
+            out = orig_rg(g, spec, m)
+            if m.rank == 1:
+                return rules.cut(g.float(), spec, m) * m.axis_size("data")
+            return out
+        steps.reduce_grad = faulty
+    elif fault == "mean_of_means":
+        steps.loss_weight = lambda count, total: torch.tensor(
+            1.0 / mesh.axis_size("data"), device=mesh.device)
+    try:
+        local = {k: rules.cut(v, rules.batch_spec(v, mesh), mesh)
+                 for k, v in batch.items()}
+        loss, grads = steps.sharded_grads(cfg, params, local, lay)
+    finally:
+        steps.reduce_grad, steps.loss_weight = orig_rg, orig_w
+    return {"loss_rel": abs(float(loss) - ref["loss_m1"]) / abs(
+        ref["loss_m1"]), "grad_rl2": _mesh_rl2(torch, grads, lay.params,
+                                               mesh, ref["grads"])}
+
+
+def _mesh_train(torch, setup, root, dev):
+    """(a) ``train(mesh=...)`` over (data 2, model 2) beside the single
+    device's run; the direct step on the -1 batch and its two planted
+    faults.  Every rank returns the readings (all-reduced) and its own
+    bytes."""
+    import math
+    from repro_torch import tree
+    from repro_torch.models import model as M
+    from repro_torch.runtime import train_loop
+    from repro_torch.sharding import ctx, rules
+    cfg, b, s, _ = _mesh_setup(setup)
+    mesh = ctx.Mesh(MESH_SHAPE, ("data", "model"), device=dev)
+    marks = [(0, 0)]
+    ctx.reset_counts()
+    run = train_loop.train(cfg, _mesh_opt(), train_loop.TrainConfig(
+        steps=MESH_STEPS, global_batch=b, seq_len=s, seed=0, log_every=1,
+        ckpt_dir=f"{root}/ckpt", ckpt_every=MESH_STEPS), mesh=mesh,
+        hooks={"on_step": lambda st, l: marks.append(
+            (ctx.collective_count(), ctx.wire_bytes()))})
+    lay = run["layout"]
+    state = {"opt": run["opt_state"], "params": run["params"]}
+    out = {"resident": rules.resident_bytes(state),
+           "logical": sum(math.prod(rules.global_shape(x.shape, sp, mesh))
+                          * x.element_size() for x, sp in
+                          zip(tree.leaves(state), lay.state)),
+           "losses": run["losses"], "step_s": run["step_seconds"],
+           "collectives": [q[0] - p[0] for p, q in zip(marks, marks[1:])],
+           "wire": [q[1] - p[1] for p, q in zip(marks, marks[1:])]}
+    log(f"rank {mesh.rank}: params + AdamW state {out['resident'] / 1e9:.4f}"
+        f" GB resident of the logical {out['logical'] / 1e9:.4f} GB "
+        f"({out['resident'] / out['logical']:.4f}); step s "
+        f"{[round(x, 3) for x in out['step_s']]}; collectives a step "
+        f"{out['collectives']}, bytes handed to them "
+        f"{[round(x / 1e9, 4) for x in out['wire']]} GB (the last step's "
+        f"with the checkpoint's gathers)")
+    out["fingerprints"] = _fingerprints(torch, tree.leaves(state),
+                                        lay.state, mesh)
+    # every rank reads the single device's results (mapped, each cutting
+    # its pieces' share)
+    ref = torch.load(f"{root}/ref.pt", mmap=True)
+    out["param_rl2"] = _mesh_rl2(torch, tree.leaves(run["params"]),
+                                 lay.params, mesh, ref["params"])
+    out["ref_losses"], out["ref_step_s"] = ref["losses"], ref["step_s"]
+    del run, state
+    params0 = M.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    params, _, lay0 = train_loop._sharded_init(params0, _mesh_opt(), mesh)
+    del params0
+    batch = _minus_one_batch(torch, cfg, b, s, dev)
+    out["direct"] = {f or "sound": _mesh_direct(torch, cfg, mesh, params,
+                                                lay0, batch, ref, f)
+                     for f in (None, "skip_dp_sum", "mean_of_means")}
+    return out
+
+
+def _mesh_gpipe(torch, setup, dev):
+    """(b) ``gpipe_apply`` over (stage 4): one danube block a stage, fp32,
+    GPIPE_MICRO microbatches of GPIPE_MB x S tokens, loss mean(out^2);
+    rank 0 runs the four blocks in sequence on the whole batch and holds
+    the output and every stage's gradients against it."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.models import model as M, transformer
+    from repro_torch.runtime import pipeline
+    from repro_torch.sharding import ctx
+    cfg, _, s, _ = _mesh_setup(setup)
+    cfg = dataclasses.replace(cfg, num_layers=GPIPE_STAGES, dtype="float32")
+    mesh = ctx.Mesh((GPIPE_STAGES,), ("stage",), device=dev)
+    units = M.init(cfg, torch.Generator(device=dev).manual_seed(1))["units"]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((GPIPE_MICRO * GPIPE_MB, s, cfg.d_model), generator=gen,
+                    device=dev)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)[None]
+
+    def stage_fn(p, h):
+        return transformer._unit(cfg, p, h, pos.expand(h.shape[0], s))
+
+    stage = mesh.coord("stage")
+    piece = tree.tree_map(lambda a: a[None].clone().requires_grad_(True),
+                          units[stage])
+    torch.cuda.synchronize() if dev.type == "cuda" else None
+    t0 = time.time()
+    out = pipeline.gpipe_apply(stage_fn, piece, x, mesh=mesh, axis="stage",
+                               microbatches=GPIPE_MICRO)
+    grads = torch.autograd.grad((out ** 2).mean(), tree.leaves(piece))
+    torch.cuda.synchronize() if dev.type == "cuda" else None
+    seconds = time.time() - t0
+    whole = [mesh.all_gather(g, "stage", 0) for g in grads]
+    if mesh.rank != 0:
+        return None
+    leaves = [tree.leaves(u) for u in units]
+    for u in leaves:
+        for p in u:
+            p.requires_grad_(True)
+    h = x
+    for u in units:
+        h = stage_fn(u, h)
+    ref = torch.autograd.grad((h ** 2).mean(), [p for u in leaves for p in u])
+    n = len(leaves[0])
+    grad_rl2 = max(_rel_l2(whole[i][st], ref[st * n + i])
+                   for st in range(GPIPE_STAGES) for i in range(n))
+    res = {"out_rl2": _rel_l2(out.detach(), h.detach()),
+           "grad_rl2": grad_rl2, "seconds": seconds,
+           "bubble": pipeline.bubble_fraction(GPIPE_STAGES, GPIPE_MICRO)}
+    log(f"(b) GPipe, {GPIPE_STAGES} stages x one block, {GPIPE_MICRO} "
+        f"microbatches of {GPIPE_MB} x {s}, fp32: output rel. L2 "
+        f"{res['out_rl2']:.3g} (gate {GPIPE_OUT_RL2}), worst gradient leaf "
+        f"{grad_rl2:.3g} (gate {GPIPE_GRAD_RL2}) vs the sequential run; "
+        f"forward + backward {seconds:.3f} s; bubble fraction "
+        f"{res['bubble']:.4f}")
+    assert res["out_rl2"] <= GPIPE_OUT_RL2, res
+    assert grad_rl2 <= GPIPE_GRAD_RL2, res
+    return res
+
+
+def _mesh_compression(torch, setup, dev):
+    """(c) ``compressed_crosspod_mean`` over (pod 2, data 2) of one
+    gradient leaf, a different draw on each pod: every rank recomputes
+    both pods' quantization itself and holds the mean (bit for bit) and
+    its residual; the mean within JAX's test bound of the exact mean."""
+    from repro_torch.runtime import compression
+    from repro_torch.sharding import ctx
+    _, _, _, shape = _mesh_setup(setup)
+    mesh = ctx.Mesh((2, 2), ("pod", "data"), device=dev)
+
+    def draw(pod):
+        gen = torch.Generator(device=dev).manual_seed(100 + pod)
+        return torch.randn(shape, generator=gen, device=dev)
+
+    g = draw(mesh.coord("pod"))
+    ctx.reset_counts()
+    torch.cuda.synchronize() if dev.type == "cuda" else None
+    t0 = time.time()
+    mean, err = compression.compressed_crosspod_mean(g, torch.zeros_like(g),
+                                                     mesh)
+    torch.cuda.synchronize() if dev.type == "cuda" else None
+    seconds, wire = time.time() - t0, ctx.wire_bytes()
+    deq = []
+    for pod in range(2):
+        q, sc = compression._quant_block(draw(pod))
+        deq.append(compression._dequant_block(q, sc, shape))
+    want = (deq[0] + deq[1]) / 2
+    exact = (draw(0) + draw(1)) / 2
+    rms = float(((mean - exact) ** 2).mean().sqrt() / exact.std())
+    assert torch.equal(mean, want), "the pods' mean is not the local one"
+    assert torch.equal(err, g - deq[mesh.coord("pod")]), "residual"
+    assert rms < 0.05, rms
+    res = {"wire_bytes": wire, "fp32_bytes": g.numel() * 4,
+           "seconds": seconds, "rms_vs_exact": rms}
+    if mesh.rank == 0:
+        log(f"(c) cross-pod int8 mean of a {list(shape)} fp32 leaf over "
+            f"(pod 2, data 2): {wire} bytes on the wire a rank (int8 "
+            f"blocks + fp32 scales; fp32 would be {res['fp32_bytes']}), "
+            f"{seconds:.3f} s; == the local recomputation bit for bit; "
+            f"rms vs the exact mean / its std {rms:.4g}")
+    return res
+
+
+def mesh_rank(root: str, setup_json: str) -> int:
+    """One of phase 12's four ranks (``phase_mesh`` starts them, all on
+    cuda:0, over gloo): (a) ``_mesh_train``, (b) ``_mesh_gpipe``, (c)
+    ``_mesh_compression``; B1-B5 must launch no time.  Rank 0 checks
+    (a)'s gates and writes ``mesh.json`` under ``root``."""
+    import gc
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import dist as tdist
+    setup = json.loads(setup_json)
+    rank, _ = tdist.init("gloo")
+    dev = tdist.device_for(None if setup["device"] == "cuda"
+                           else setup["device"])
+    before = ops.launch_counts()
+    t0 = time.time()
+    out = {"train": _mesh_train(torch, setup, root, dev)}
+    gc.collect()
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    out["gpipe"] = _mesh_gpipe(torch, setup, dev)
+    gc.collect()
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    out["compression"] = _mesh_compression(torch, setup, dev)
+    assert ops.launch_counts() == before, "a B1-B5 kernel ran in phase 12"
+    out["seconds"] = time.time() - t0
+    if rank != 0:
+        return 0
+    a = out["train"]
+    loss_rel = max(abs(x - y) / abs(y) for x, y in
+                   zip(a["losses"], a["ref_losses"]))
+    d = a["direct"]
+    log(f"(a) train(mesh=(data 2, model 2)) vs single device: losses "
+        f"{[round(x, 5) for x in a['losses']]} vs "
+        f"{[round(x, 5) for x in a['ref_losses']]} (worst relative "
+        f"{loss_rel:.3g}, gate {MESH_LOSS_RTOL}); params after "
+        f"{MESH_STEPS} steps, worst leaf rel. L2 {a['param_rl2']:.3g} (gate "
+        f"{MESH_PARAM_RL2}); the -1 batch's step: loss relative "
+        f"{d['sound']['loss_rel']:.3g}, gradients worst leaf "
+        f"{d['sound']['grad_rl2']:.3g} (gate {MESH_GRAD_RL2}); planted "
+        f"faults, gradients / loss: skip the data-parallel sum "
+        f"{d['skip_dp_sum']['grad_rl2']:.3g} / "
+        f"{d['skip_dp_sum']['loss_rel']:.3g}, mean of local means "
+        f"{d['mean_of_means']['grad_rl2']:.3g} / "
+        f"{d['mean_of_means']['loss_rel']:.3g}")
+    assert loss_rel <= MESH_LOSS_RTOL, (a["losses"], a["ref_losses"])
+    assert a["param_rl2"] <= MESH_PARAM_RL2, a["param_rl2"]
+    assert d["sound"]["loss_rel"] <= MESH_LOSS_RTOL, d["sound"]
+    assert d["sound"]["grad_rl2"] <= MESH_GRAD_RL2, d["sound"]
+    # each planted fault must fail the comparison (its gradients; the
+    # mean of means moves the loss too, but near init every row's loss is
+    # near ln V, so that reading alone would be weak)
+    assert d["skip_dp_sum"]["grad_rl2"] > MESH_GRAD_RL2, d
+    assert d["mean_of_means"]["grad_rl2"] > MESH_GRAD_RL2, d
+    with open(f"{root}/mesh.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def mesh_restore_rank(root: str, setup_json: str) -> int:
+    """(d) One of two ranks: restore (a)'s checkpoint onto
+    ``elastic_mesh`` over two ranks (data 1, model 2), through
+    ``checkpointer.restore`` given the mesh and through a host restore +
+    ``elastic.reshard``; every leaf's fingerprint must be (a)'s final
+    state's.  Rank 0 writes ``restore.json``."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.models import model as M
+    from repro_torch.runtime import elastic, train_loop
+    from repro_torch.sharding import dist as tdist, rules
+    setup = json.loads(setup_json)
+    rank, _ = tdist.init("gloo")
+    dev = tdist.device_for(None if setup["device"] == "cuda"
+                           else setup["device"])
+    cfg, _, _, _ = _mesh_setup(setup)
+    t0 = time.time()
+    mesh = elastic.elastic_mesh(prefer_model=2, device=dev)
+    whole = M.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    params, opt_state, lay = train_loop._sharded_init(whole, _mesh_opt(),
+                                                      mesh)
+    del whole
+    state, step, _ = ckpt.restore(f"{root}/ckpt",
+                                  {"params": params, "opt": opt_state},
+                                  specs=lay.state, mesh=mesh)
+    # the elastic path: whole host arrays, then this rank's pieces
+    like = tree.unflatten(state, [
+        torch.empty(rules.global_shape(x.shape, sp, mesh), dtype=x.dtype,
+                    device="meta")
+        for x, sp in zip(tree.leaves(state), lay.state)])
+    host = ckpt.restore(f"{root}/ckpt", like, device="cpu")[0]
+    resharded = elastic.reshard(host["params"], mesh)
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(resharded), tree.leaves(state["params"]))), \
+        "elastic.reshard != restore onto the mesh"
+    del host, resharded
+    prints = _fingerprints(torch, tree.leaves(state), lay.state, mesh)
+    seconds = time.time() - t0
+    if rank == 0:
+        with open(f"{root}/restore.json", "w") as f:
+            json.dump({"fingerprints": prints, "step": step,
+                       "shape": mesh.shape, "seconds": seconds}, f)
+    return 0
+
+
+def phase_mesh(torch, card, setup=None):
+    """Phase 12: multi-device training.  The single device's side of (a)
+    here (``_mesh_reference``); four gloo ranks sharing the card
+    (``mesh_rank``: (a) train over (data 2, model 2) beside two planted
+    faults, (b) GPipe over 4 stages, (c) the cross-pod int8 mean); then
+    two ranks restore (a)'s checkpoint (``mesh_restore_rank``, (d)), its
+    leaves bit-equal to (a)'s final state."""
+    import gc
+    import os
+    import tempfile
+    from repro_torch.sharding import dist as tdist
+    setup = setup or {"device": "cuda"}
+    t0 = time.time()
+    gc.collect()
+    if setup["device"] == "cuda":
+        torch.cuda.empty_cache()
+    log(f"== multi-device training: h2o-danube-3-4b d3840 at "
+        f"{MESH_LAYERS} layers, masked 6:8, bf16, int8 AdamW moments, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, {MESH_RANKS} gloo ranks on "
+        f"one card ==")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    arg = json.dumps(setup)
+    with tempfile.TemporaryDirectory() as root:
+        _mesh_reference(torch, setup, root)
+        gc.collect()
+        if setup["device"] == "cuda":
+            torch.cuda.empty_cache()
+        for fn, n in (("mesh_rank", MESH_RANKS),
+                      ("mesh_restore_rank", 2)):
+            t1 = time.time()
+            texts = tdist.launch(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 f"sys.exit(chip_smoke.{fn}(sys.argv[1], sys.argv[2]))",
+                 root, arg], n, env=env, cwd=ROOT, timeout=MESH_TIMEOUT)
+            for r, text in enumerate(texts):
+                for line in text.splitlines():
+                    log(f"  [{fn} {r}] {line}")
+            log(f"  {fn} x {n}: {time.time() - t1:.1f} s")
+        with open(f"{root}/mesh.json") as f:
+            out = json.load(f)
+        with open(f"{root}/restore.json") as f:
+            out["restore"] = json.load(f)
+    a, d = out["train"], out["restore"]
+    assert d["step"] == MESH_STEPS and d["shape"] == {"data": 1, "model": 2}
+    assert d["fingerprints"] == a["fingerprints"], \
+        "restore onto 2 ranks != (a)'s state"
+    log(f"(d) (a)'s checkpoint restored onto (data 1, model 2): "
+        f"{len(d['fingerprints'])} leaves' exact checksums equal (a)'s final "
+        f"state's, and "
+        f"elastic.reshard of the host arrays == restore onto the mesh; "
+        f"{d['seconds']:.1f} s")
+    out["seconds"] = time.time() - t0
+    log(f"phase 12 (multi-device training): {out['seconds']:.1f} s ({card})")
+    return out
+
+
+def report_mesh(mesh, card):
+    a, b, c = mesh["train"], mesh["gpipe"], mesh["compression"]
+    d = a["direct"]
+    log(f"multi-device training (phase 12): rank 0 holds "
+        f"{a['resident'] / 1e9:.4f} GB of params + AdamW state of the "
+        f"logical {a['logical'] / 1e9:.4f} GB; step s "
+        f"{[round(x, 3) for x in a['step_s']]} (single device "
+        f"{[round(x, 3) for x in a['ref_step_s']]}); collectives a step "
+        f"{a['collectives']}, GB handed to them "
+        f"{[round(x / 1e9, 4) for x in a['wire']]}; gradients vs one device "
+        f"{d['sound']['grad_rl2']:.3g}, faults "
+        f"{d['skip_dp_sum']['grad_rl2']:.3g} / "
+        f"{d['mean_of_means']['grad_rl2']:.3g}; GPipe fwd + bwd "
+        f"{b['seconds']:.3f} s; int8 cross-pod bytes {c['wire_bytes']} "
+        f"in {c['seconds']:.3f} s; phase 12 {mesh['seconds']:.1f} s ({card})")
+
+
 def main() -> int:
     import gc
     try:
@@ -3794,6 +4315,9 @@ def main() -> int:
     gc.collect()  # engines and graphs of earlier phases in cycles
     torch.cuda.empty_cache()
     tp = phase_tp(torch, card, ref, Timer(torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(torch, card)
     prof, tok_s = slided["profile"], slided["tok_s"]
     for label, pr in prof.items():
         log(f"slided decode step, {label}: {pr['step_ms']:.3f} ms, host "
@@ -3832,10 +4356,14 @@ def main() -> int:
             f"B3 given act_absmax {t['act_absmax']}; phase 11 "
             f"{tp['seconds']:.1f} s ({card})")
 
+    report_mesh(mesh, card)
+
     def entry(name, source, replaces, n, err, st):
+        # phase 12's ranks assert that no kernel launched in training
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}",
-                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "replaces": replaces, "launches": n,
+                "mesh_training_launches": 0, "max_abs_err": err,
                 "ms": st["ms"], "kernel_ms": st["ms"],
                 "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                 "bound_by": st["bound_by"], "library_ms": st["library_ms"]}

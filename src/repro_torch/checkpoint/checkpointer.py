@@ -9,6 +9,13 @@ Leaves are stored as host numpy arrays in the tree's visiting order
 (``tree.leaves``).  numpy has no bfloat16 or float8_e4m3fn: such leaves
 are stored as their int16 / int8 bit patterns, with the torch dtype of
 every leaf in the manifest, so a restore is bit-exact.
+
+A sharded tree (one rank's pieces, given the leaves' specs and the mesh)
+is saved as its whole, logical arrays: every rank gathers, rank 0
+writes, in the same format.  ``restore`` given specs and a mesh reads
+the host arrays and cuts this rank's pieces for that mesh, so a
+single-device checkpoint restores onto a mesh, a sharded one onto one
+device, and either onto a mesh of another shape.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch import tree as tree_util
+from repro_torch.sharding import rules
 
 # torch dtypes numpy cannot hold, stored as integers of the same width
 _BITCAST = {torch.bfloat16: torch.int16, torch.float8_e4m3fn: torch.int8}
@@ -39,9 +47,30 @@ def _to_numpy(x: torch.Tensor) -> np.ndarray:
     return x.numpy()
 
 
-def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
+def _whole_on_host(tree, specs, mesh) -> list:
+    """The tree's leaves as whole host tensors: gathered over the mesh
+    when it is sharded (every rank of the mesh calls this)."""
+    if mesh is None:
+        return [x.detach().to("cpu", copy=True)
+                for x in tree_util.leaves(tree)]
+    return [rules.gather_leaf(x.detach(), s, mesh).to("cpu", copy=True)
+            for x, s in zip(tree_util.leaves(tree), specs)]
+
+
+def save(ckpt_dir: str, step: int, tree, extra: dict | None = None,
+         specs: list | None = None, mesh=None) -> str:
     """Synchronous atomic checkpoint of a tree of tensors.  Returns the
-    published path."""
+    published path.  Given ``specs`` (one per leaf) and the ``mesh``, the
+    tree holds this rank's pieces: every rank calls, rank 0 writes the
+    whole arrays, and the call returns on every rank once they are
+    published."""
+    if mesh is not None:
+        host = tree_util.unflatten(tree, _whole_on_host(tree, specs, mesh))
+        final = os.path.join(ckpt_dir, f"step_{step:08d}")
+        if mesh.rank == 0:
+            save(ckpt_dir, step, host, extra)
+        mesh.barrier()
+        return final
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + f".tmp.{os.getpid()}"
@@ -79,11 +108,16 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, like_tree, step: int | None = None, device=None):
+def restore(ckpt_dir: str, like_tree, step: int | None = None, device=None,
+            specs: list | None = None, mesh=None):
     """Restore into the structure of ``like_tree`` (its leaves' shapes and
     dtypes), on ``device`` (the card unless the caller names another).
     Returns (tree, step, extra).  Raises ValueError when the leaf count
-    or a leaf's shape differs."""
+    or a leaf's shape differs.  Given ``specs`` (one per leaf) and a
+    ``mesh``, ``like_tree`` holds pieces: each leaf is this rank's piece
+    of the stored whole array, on ``mesh.device``."""
+    if mesh is not None:
+        device = mesh.device
     device = resolve_device(device)
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
@@ -99,14 +133,19 @@ def restore(ckpt_dir: str, like_tree, step: int | None = None, device=None):
     with np.load(os.path.join(path, "arrays.npz")) as data:
         for i, (ref, name) in enumerate(zip(leaves, manifest["dtypes"])):
             arr = data[f"leaf_{i}"]
-            if tuple(arr.shape) != tuple(ref.shape):
+            want = tuple(ref.shape) if mesh is None else \
+                rules.global_shape(ref.shape, specs[i], mesh)
+            if tuple(arr.shape) != want:
                 raise ValueError(f"leaf {i} shape mismatch: {arr.shape} vs "
-                                 f"{tuple(ref.shape)}")
+                                 f"{want}")
             t = torch.from_numpy(arr)
             stored = getattr(torch, name)
             if stored in _BITCAST:
                 t = t.view(stored)
-            restored.append(t.to(device=device, dtype=ref.dtype))
+            if mesh is not None:
+                t = rules.cut(t, specs[i], mesh)
+            restored.append(t.to(device=device, dtype=ref.dtype,
+                                 copy=True).contiguous())
     return tree_util.unflatten(like_tree, restored), step, manifest["extra"]
 
 
@@ -122,13 +161,18 @@ class AsyncCheckpointer:
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
 
-    def save(self, step: int, tree, extra: dict | None = None):
+    def save(self, step: int, tree, extra: dict | None = None,
+             specs: list | None = None, mesh=None):
+        """Given ``specs`` and the ``mesh``, ``tree`` holds this rank's
+        pieces: every rank gathers the whole arrays (on the caller's
+        thread: collectives), rank 0 writes them."""
         self.wait()
         # the device -> host copies happen on the caller's thread, before
         # the next step writes the parameters in place; file IO happens in
         # the background
-        host = tree_util.tree_map(
-            lambda x: x.detach().to("cpu", copy=True), tree)
+        host = tree_util.unflatten(tree, _whole_on_host(tree, specs, mesh))
+        if mesh is not None and mesh.rank != 0:
+            return
 
         def work():
             try:

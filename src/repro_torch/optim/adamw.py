@@ -9,15 +9,25 @@ int8 state keeps each moment in its parameter's shape with fp32 scales
 per block of the last dim (2 bytes a parameter of moments instead of 8);
 the second moment is stored as sqrt(nu), and the normalized update of an
 int8 step is clamped to [-10, 10] (8-bit-Adam's trust clamp).
+
+Given a ``rules.Layout``, ``update`` runs on one rank's pieces: the
+global norm counts each element once (a piece replicated over some axes
+adds its sum of squares on one of its replicas only), and an int8 block
+that spans the ranks of a sharded last dim (its scale replicated, as
+``rules.opt_state_shardings`` leaves it when the block count does not
+divide the axis) takes its absmax over those ranks, so the pieces
+quantize as the whole tensor would.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple
 
 import torch
 
 from repro_torch import tree
+from repro_torch.sharding import rules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +80,44 @@ def _blockwise_dequant(q: torch.Tensor, scale: torch.Tensor,
     return (blocks * scale[..., None]).reshape(q.shape)
 
 
+class _Spanning:
+    """A piece whose sharded last dim cuts through int8 blocks: the block
+    of each of its columns, and the axes the last dim is sharded over."""
+
+    def __init__(self, p, spec, layout, block_target):
+        mesh = layout.mesh
+        self.mesh, self.axes = mesh, rules.axes_of(spec[p.dim() - 1])
+        whole = rules.global_shape(p.shape, spec, mesh)[-1]
+        blk = block_for(whole, block_target)
+        start = rules.offset(spec, p.dim() - 1, whole, mesh)
+        self.nblocks = whole // blk
+        self.block = (start + torch.arange(p.shape[-1], device=p.device)) \
+            // blk
+
+    def quant(self, x):
+        idx = self.block.expand(x.shape)
+        absmax = torch.zeros(tuple(x.shape[:-1]) + (self.nblocks,),
+                             dtype=torch.float32, device=x.device)
+        absmax = absmax.scatter_reduce(-1, idx, x.abs(), "amax")
+        absmax = self.mesh.all_reduce(absmax, self.axes, "max")
+        scale = torch.clamp_min(absmax, 1e-12) / 127.0
+        q = torch.clamp(torch.round(x / scale[..., self.block]), -127, 127)
+        return q.to(torch.int8), scale
+
+    def dequant(self, q, scale):
+        return q.to(torch.float32) * scale[..., self.block]
+
+
+def _spanning(p, spec, scale_spec, layout, block_target):
+    """A ``_Spanning`` where the piece's last dim is sharded and its
+    scales are not, else None."""
+    if layout is None or p.dim() == 0 or len(spec) < p.dim():
+        return None
+    if spec[p.dim() - 1] is None or scale_spec[p.dim() - 1] is not None:
+        return None
+    return _Spanning(p, spec, layout, block_target)
+
+
 def init(params, cfg: AdamWConfig) -> OptState:
     """Zero moments (fp32, or int8 with zero scales) and step 0, on the
     parameters' device."""
@@ -96,21 +144,38 @@ def init(params, cfg: AdamWConfig) -> OptState:
                     tree.tree_map(zeros, params), None, None)
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, layout=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32 (the per-leaf
-    norms' norm: the same quantity as JAX's sum, in another order)."""
-    norms = [torch.linalg.vector_norm(g, dtype=torch.float32)
-             for g in tree.leaves(grads)]
-    return torch.linalg.vector_norm(torch.stack(norms))
+    norms' norm: the same quantity as JAX's sum, in another order).
+    Given a layout, of the whole leaves whose pieces ``grads`` holds."""
+    if layout is None:
+        norms = [torch.linalg.vector_norm(g, dtype=torch.float32)
+                 for g in tree.leaves(grads)]
+        return torch.linalg.vector_norm(torch.stack(norms))
+    mesh = layout.mesh
+    sq = []
+    for g, spec in zip(tree.leaves(grads), layout.params):
+        sharded = {a for d in spec for a in rules.axes_of(d)}
+        # one replica of each piece counts: the rank at coordinate 0 of
+        # every axis the piece is replicated over
+        if all(mesh.coord(a) == 0 for a in mesh.axis_names
+               if a not in sharded):
+            sq.append(torch.sum(torch.square(g.to(torch.float32))))
+    total = torch.stack(sq).sum() if sq else torch.zeros(
+        (), dtype=torch.float32, device=mesh.device)
+    return torch.sqrt(mesh.all_reduce(total, mesh.axis_names, "sum"))
 
 
 @torch.no_grad()
-def update(params, grads, state: OptState, cfg: AdamWConfig, lr_scale=1.0):
+def update(params, grads, state: OptState, cfg: AdamWConfig, lr_scale=1.0,
+           layout=None):
     """One AdamW step with global-norm clipping.  Writes ``params`` and
     the state's moments in place; returns (params, new_state, metrics)
-    with metrics {'grad_norm' (before clipping), 'lr'}."""
+    with metrics {'grad_norm' (before clipping), 'lr'}.  Given a
+    ``rules.Layout``, ``params``, ``grads`` and ``state`` are one rank's
+    pieces (the module docstring)."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, layout)
     clip = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-12), 1.0)
     stepf = step.to(torch.float32)
     b1c = 1 - torch.pow(cfg.b1, stepf)
@@ -119,13 +184,22 @@ def update(params, grads, state: OptState, cfg: AdamWConfig, lr_scale=1.0):
     int8_state = cfg.state_dtype == "int8"
     none = [None] * len(tree.leaves(params))
 
-    for p, g, mu, nu, mus, nus in zip(
+    specs = none if layout is None else layout.params
+    scale_specs = layout.scales if int8_state and layout else none
+
+    for p, g, mu, nu, mus, nus, spec, sspec in zip(
             tree.leaves(params), tree.leaves(grads), tree.leaves(state.mu),
             tree.leaves(state.nu),
             tree.leaves(state.mu_scale) if int8_state else none,
-            tree.leaves(state.nu_scale) if int8_state else none):
+            tree.leaves(state.nu_scale) if int8_state else none,
+            specs, scale_specs):
         g = g.to(torch.float32) * clip
-        if int8_state:
+        span = _spanning(p, spec, sspec, layout, cfg.block) \
+            if int8_state else None
+        if span is not None:
+            m = span.dequant(mu, mus)
+            v = span.dequant(nu, nus) ** 2
+        elif int8_state:
             m = _blockwise_dequant(mu, mus, cfg.block)
             v = _blockwise_dequant(nu, nus, cfg.block) ** 2  # stored sqrt
         else:
@@ -140,12 +214,14 @@ def update(params, grads, state: OptState, cfg: AdamWConfig, lr_scale=1.0):
         upd = upd + cfg.weight_decay * p.to(torch.float32)
         p.copy_((p.to(torch.float32) - lr * upd).to(p.dtype))
         if int8_state:
-            q, s = _blockwise_quant(m, cfg.block)
+            quant = span.quant if span is not None else functools.partial(
+                _blockwise_quant, block_target=cfg.block)
+            q, s = quant(m)
             mu.copy_(q)
             mus.copy_(s)
             # sqrt(nu) halves the dynamic range, so small second moments
             # survive symmetric int8
-            q, s = _blockwise_quant(torch.sqrt(v), cfg.block)
+            q, s = quant(torch.sqrt(v))
             nu.copy_(q)
             nus.copy_(s)
         else:

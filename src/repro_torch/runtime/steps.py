@@ -1,15 +1,36 @@
 """The step functions shared by the trainer and the server (port of
-``repro.runtime.steps``)."""
+``repro.runtime.steps``).
+
+``train_step`` given a ``rules.Layout`` runs the sharded step, the port's
+form of JAX's ``jit(train_step, in_shardings=...)`` on a mesh.  Between
+steps each rank holds only its pieces of the parameters and optimizer
+state.  In the step:
+- each parameter piece is gathered whole over the axes its spec names
+  (``_Gather``, whose backward hands the gradient back to the piece);
+- the unchanged single-device ``M.loss_fn`` runs on this rank's
+  ``batch_spec`` slice, weighted by the slice's share of the global count
+  of labels (the ranks' weighted losses sum to the global ``total /
+  count``, where a mean of the local means would not);
+- the backward sums each gradient over the data-parallel axes (``pod``,
+  ``data``) and cuts it to the rank's piece (``reduce_grad``);
+- AdamW updates the pieces (``adamw.update`` given the layout).
+The ``model`` axis shards storage only: its ranks gather the same leaves
+and compute the same batch slice, where GSPMD would split the compute
+(ROADMAP C).
+"""
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+from repro_torch.models import transformer
 from repro_torch.optim import adamw, schedule
+from repro_torch.sharding import rules
 
 
 def trainable(params) -> list[torch.Tensor]:
@@ -29,8 +50,110 @@ def _grads(cfg: ModelConfig, params, leaves, batch):
     return loss.detach(), grads
 
 
+def dp_axes(mesh) -> tuple:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def reduce_grad(g: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """A whole leaf's gradient on this rank (of its weighted batch slice)
+    -> the piece's gradient: summed over the data-parallel axes, cut to
+    the piece.  A dim sharded over a data-parallel axis is
+    reduce-scattered over it, a dim sharded over another axis (whose
+    ranks hold the same gradient) narrowed locally, and the leaf summed
+    over the data-parallel axes that shard none of its dims; fp32."""
+    g = g.to(torch.float32)
+    dp = dp_axes(mesh)
+    dims = rules.sharded_dims(spec, g.dim())
+    for d, axes in dims:  # narrow first: less to send
+        if not set(axes) & set(dp):
+            g = rules.cut(g, (None,) * d + (spec[d],), mesh)
+    done = set()
+    for d, axes in dims:
+        if not set(axes) & set(dp):
+            continue
+        for a in axes:  # major to minor
+            if a in dp:
+                g = mesh.reduce_scatter(g, a, d)
+                done.add(a)
+            else:
+                n = g.shape[d] // mesh.axis_size(a)
+                g = g.narrow(d, mesh.coord(a) * n, n)
+    return mesh.all_reduce(g, [a for a in dp if a not in done], "sum")
+
+
+class _Gather(torch.autograd.Function):
+    """The whole leaf from this rank's piece; the backward gives the piece
+    its gradient (``reduce_grad``).  Every rank runs the same graph, so
+    the backward collectives run in the same order on every rank."""
+
+    @staticmethod
+    def forward(ctx, piece, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return rules.gather_leaf(piece, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_grad(g, ctx.spec, ctx.mesh), None, None
+
+
+def loss_weight(count, total):
+    """This rank's weight on its local mean loss: its slice's share of the
+    global label count, so the weighted losses sum to ``total / count``
+    over the global batch."""
+    return torch.clamp_min(count, 1.0) / torch.clamp_min(total, 1.0)
+
+
+def check_moe_groups(cfg: ModelConfig, local_tokens: int, dp: int):
+    """The MoE dispatch groups of a sharded step must be JAX's: tokens
+    are grouped ``tg = min(group_size, tokens)`` over the global batch.
+    A rank that holds whole global groups dispatches the same groups; so
+    does one whose groups, and the global ones, can drop no token (``cap
+    >= tg``).  Anything else would compute other drops and raises."""
+    if not cfg.uses_moe:
+        return
+    spec = transformer.moe_spec(cfg)
+    total = local_tokens * dp
+    tg_global = min(spec.group_size, total)
+    tg_local = min(spec.group_size, local_tokens)
+    if local_tokens % tg_global == 0 and tg_local == tg_global:
+        return
+
+    def cap(tg):
+        return max(1, int(spec.capacity_factor * tg * spec.top_k
+                          / spec.num_experts))
+
+    if cap(tg_global) >= tg_global and cap(tg_local) >= tg_local:
+        return
+    raise ValueError(
+        f"{cfg.name}: a rank's {local_tokens} tokens are not whole MoE "
+        f"groups of the global batch's {tg_global}, and the capacity "
+        f"(factor {spec.capacity_factor}) can drop tokens, so the sharded "
+        "step would drop others than JAX's; give each rank whole groups "
+        "(ROADMAP C, the MoE group rule)")
+
+
+def sharded_grads(cfg: ModelConfig, params, batch, layout):
+    """(global mean loss, the pieces' gradients) of this rank's batch
+    slice under ``layout``; every rank of the mesh calls it."""
+    mesh = layout.mesh
+    dp = dp_axes(mesh)
+    labels = batch["labels"]
+    check_moe_groups(cfg, labels.numel(),
+                     math.prod(mesh.axis_size(a) for a in dp))
+    pieces = trainable(params)
+    whole = [_Gather.apply(p, s, mesh) for p, s in zip(pieces, layout.params)]
+    count = (labels >= 0).sum().to(torch.float32)
+    total = mesh.all_reduce(count, dp, "sum")
+    loss = M.loss_fn(tree.unflatten(params, whole), cfg, batch)
+    weighted = loss * loss_weight(count, total)
+    grads = torch.autograd.grad(weighted, pieces, allow_unused=True,
+                                materialize_grads=True)
+    return mesh.all_reduce(weighted.detach(), dp, "sum"), grads
+
+
 def train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-               params, opt_state: adamw.OptState, batch, accum: int = 1):
+               params, opt_state: adamw.OptState, batch, accum: int = 1,
+               layout=None):
     """loss -> grads -> global-norm clip -> AdamW (params updated in
     place).  Returns (params, opt_state, metrics {'loss', 'grad_norm',
     'lr'}), every metric a device tensor.
@@ -38,10 +161,19 @@ def train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     accum > 1: the batch is split into ``accum`` microbatches along its
     first axis, run in turn, their grads summed in fp32; loss and grads
     are divided by ``accum`` (one big batch's math, ~1/accum of its
-    activation memory)."""
+    activation memory).
+
+    layout: a ``rules.Layout``: ``params`` and ``opt_state`` are this
+    rank's pieces, ``batch`` its slice of the global batch, and every
+    rank of ``layout.mesh`` calls the step (the module docstring)."""
     leaves = trainable(params)
+    if layout is None:
+        grads_of = functools.partial(_grads, cfg, params, leaves)
+    else:
+        grads_of = functools.partial(sharded_grads, cfg, params,
+                                     layout=layout)
     if accum <= 1:
-        loss, grads = _grads(cfg, params, leaves, batch)
+        loss, grads = grads_of(batch)
     else:
         n = next(iter(batch.values())).shape[0] // accum
         loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
@@ -49,7 +181,7 @@ def train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                for p in leaves]
         for i in range(accum):
             mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-            l, g = _grads(cfg, params, leaves, mb)
+            l, g = grads_of(mb)
             loss = loss + l
             for a, b in zip(acc, g):
                 a.add_(b.to(torch.float32))
@@ -58,7 +190,7 @@ def train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     grads = tree.unflatten(params, grads)
     lr_scale = schedule.warmup_cosine(opt_state.step)
     params, opt_state, metrics = adamw.update(params, grads, opt_state,
-                                              opt_cfg, lr_scale)
+                                              opt_cfg, lr_scale, layout)
     return params, opt_state, dict(metrics, loss=loss)
 
 

@@ -495,6 +495,6 @@ def test_training_defaults_to_the_card(monkeypatch):
         train_loop.train(cfg, adamw.AdamWConfig(), _tc(steps=1))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         launch_train.main(["--arch", "h2o-danube-3-4b", "--smoke"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="repro_torch.sharding.ctx.Mesh"):
         train_loop.train(cfg, adamw.AdamWConfig(), _tc(steps=1),
                          mesh=object(), device="cpu")
