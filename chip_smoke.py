@@ -186,7 +186,28 @@ Phases (any failed check exits nonzero):
    checkpoint onto ``elastic_mesh`` (data 1, model 2), through
    ``restore`` given the mesh and through ``elastic.reshard``, every
    leaf bit-equal to (a)'s final state; the phase's time;
-13. a ``kernels`` JSON line (the five kernels, launches of the
+13. the cost model, the autotuner and the dry run (ROADMAP A.2, A.4):
+   the card's published peaks from ``repro_torch.kernels.roofline``
+   (every bound of phases 2, 2b, 3 and 11 comes from it and equals the
+   digit the old constants printed) beside ``measure_peaks()``; the
+   autotuner, its cache in a temporary directory: B1 and B3 int8 tuned
+   through ``kernels.ops`` at h2o-danube-3-4b's five linear shapes x R
+   in TUNE_RS and B2 at phase 3's decode geometry, each winner's output
+   bit-equal to the heuristic's and to the plain version (B2 within 2^-7
+   of max|plain|), every entry's efficiency at most 1, winner and
+   heuristic timed in turns, B2's verify rows at the tuned split
+   bit-equal to decode calls, the cache file read back in a child
+   process, a tune request inside a CUDA graph capture timing nothing; a
+   slided engine captured on the tuned cache giving phase 5's streams
+   (and with speculate=3, random drafts, too), one capture a step, its
+   graphed decode tok/s in turns with one captured before tuning; the
+   dry run in child processes (fake CUDA tensors): phase 10's
+   configuration's peak within DRY_PEAK_RTOL of phase 10's measured
+   ``max_memory_allocated``, phase 12's on a dry (data 2, model 2) mesh
+   equal to phase 12's ranks' resident bytes, collectives and their
+   bytes, rank for rank, and h2o-danube-3-4b train_4k on 16x16; the
+   phase within PHASE13_S seconds;
+14. a ``kernels`` JSON line (the five kernels, launches of the
    h2o-danube-3-4b runs, and B3's act_absmax instance with the launches
    of phase 11's slided run; phase 12's zero launches), the card line,
    and the final result line.
@@ -204,8 +225,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}  # dense tensor-core peaks
 PREFILL_CHUNK = 128
 SHAPES = [(3840, 3840), (960, 3840), (10240, 3840), (3840, 10240),
           (32000, 3840)]
@@ -294,10 +313,41 @@ class Timer:
         return self.rounds([kernel, library], iters)
 
 
+def _peaks(kind: str):
+    """The card's published peaks for ``kind`` ('int8' or 'bf16') from
+    ``repro_torch.kernels.roofline``."""
+    from repro_torch.kernels import roofline
+    return roofline.peaks({"int8": "int8", "bf16": "bfloat16"}[kind])
+
+
+def bytes_s(nbytes: float) -> float:
+    """Seconds ``nbytes`` take at the card's memory rate."""
+    return nbytes / (_peaks("bf16").bw_gbps * 1e9)
+
+
+def ops_s(ops: float, kind: str = "int8") -> float:
+    """Seconds ``ops`` take at the card's peak for ``kind``."""
+    return ops / (_peaks(kind).gflops * 1e9)
+
+
+BOUNDS = {"checked": 0}
+
+
 def bound(bytes_moved: float, ops: float, kind: str):
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_S, ops / PEAK_OPS[kind]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """(ms, 'bytes' | 'operations'): ``roofline_us`` of this script's own
+    byte and operation counts at ``roofline.peaks(kind)``.  Each bound is
+    held to the digit it printed before the module, when this script
+    divided by its own constants: 3.35e12 B/s and the dense tensor-core
+    peaks 1979e12 (int8) and 989e12 (bf16) a second."""
+    from repro_torch.kernels import roofline
+    cost, p = roofline.Cost(bytes_moved, ops), _peaks(kind)
+    ms, by = roofline.roofline_us(cost, p) / 1e3, roofline.bound_by(cost, p)
+    t_b, t_o = bytes_moved / 3.35e12, ops / {"int8": 1979e12,
+                                             "bf16": 989e12}[kind]
+    assert f"{ms:.4f}" == f"{max(t_b, t_o) * 1e3:.4f}", (ms, t_b, t_o)
+    assert by == ("bytes" if t_b >= t_o else "operations"), (by, t_b, t_o)
+    BOUNDS["checked"] += 1
+    return ms, by
 
 
 # ----------------------------------------------------------------- phase 2
@@ -386,8 +436,8 @@ def phase_b1(torch, timer):
                     step["ms"] += n * t_k
                     step["plain_ms"] += n * t_p
                     step["library_ms"] += n * t_l
-                    step["bytes_s"] += n * nbytes / HBM_BYTES_S
-                    step["ops_s"] += n * ops / PEAK_OPS["int8"]
+                    step["bytes_s"] += n * bytes_s(nbytes)
+                    step["ops_s"] += n * ops_s(ops)
             del w, p, c, w_dense
     torch.cuda.empty_cache()
 
@@ -509,9 +559,9 @@ def phase_slided_kernels(torch, timer):
             st["plain_ms"] += n * t_p
             st["library_ms"] = (None if t_l is None
                                 else st["library_ms"] + n * t_l)
-            st["bytes_s"] += n * nbytes / HBM_BYTES_S
-            st["ops_s"] += n * ops / PEAK_OPS["int8"]
-            st["dense_bytes_s"] += n * (dense_bytes or 0) / HBM_BYTES_S
+            st["bytes_s"] += n * bytes_s(nbytes)
+            st["ops_s"] += n * ops_s(ops)
+            st["dense_bytes_s"] += n * bytes_s(dense_bytes or 0)
 
     def operand_bytes(p):
         return (p["sp_values"].numel() + 4 * p["sp_meta"].numel()
@@ -3348,8 +3398,8 @@ def _tp_kernels(torch, timer):
                     row["ms"] += 24 * t_k
                     row["plain_ms"] += 24 * t_p
                     row["library_ms"] += 24 * t_l
-                    row["bytes_s"] += 24 * nbytes / HBM_BYTES_S
-                    row["ops_s"] += 24 * ops / PEAK_OPS["int8"]
+                    row["bytes_s"] += 24 * bytes_s(nbytes)
+                    row["ops_s"] += 24 * ops_s(ops)
                     log(f"B3 act_absmax int8 {m} {k} {r} | {t_k:.4f} "
                         f"{t_p:.4f} {t_l:.4f} "
                         f"{bound(nbytes, ops, 'int8')[0]:.4f} | {e:.3g}")
@@ -4064,6 +4114,11 @@ def mesh_rank(root: str, setup_json: str) -> int:
     out["compression"] = _mesh_compression(torch, setup, dev)
     assert ops.launch_counts() == before, "a B1-B5 kernel ran in phase 12"
     out["seconds"] = time.time() - t0
+    # every rank's bytes and collectives, which phase 13's dry run of
+    # this configuration must equal rank for rank
+    with open(f"{root}/counts{rank}.json", "w") as f:
+        json.dump({k: out["train"][k] for k in
+                   ("resident", "collectives", "wire")}, f)
     if rank != 0:
         return 0
     a = out["train"]
@@ -4185,6 +4240,10 @@ def phase_mesh(torch, card, setup=None):
             out = json.load(f)
         with open(f"{root}/restore.json") as f:
             out["restore"] = json.load(f)
+        out["ranks"] = []
+        for r in range(MESH_RANKS):
+            with open(f"{root}/counts{r}.json") as f:
+                out["ranks"].append(json.load(f))
     a, d = out["train"], out["restore"]
     assert d["step"] == MESH_STEPS and d["shape"] == {"data": 1, "model": 2}
     assert d["fingerprints"] == a["fingerprints"], \
@@ -4214,6 +4273,538 @@ def report_mesh(mesh, card):
         f"{d['mean_of_means']['grad_rl2']:.3g}; GPipe fwd + bwd "
         f"{b['seconds']:.3f} s; int8 cross-pod bytes {c['wire_bytes']} "
         f"in {c['seconds']:.3f} s; phase 12 {mesh['seconds']:.1f} s ({card})")
+
+
+# ---------------------------------------------------------------- phase 13
+TUNE_RS = (4, PREFILL_CHUNK)   # the decode step's rows and a prefill chunk
+DRY_PEAK_RTOL = 0.2            # the dry run's peak vs phase 10's measured
+DRY_TIMEOUT = 600
+PHASE13_S = 90                 # the phase's budget on the card
+# the tuner's cache file, read back in a child process
+READ_TILES = ("import dataclasses, json, sys; "
+              "from repro_torch.kernels import autotune; "
+              "print('TILES ' + json.dumps({k: (lambda t: t and "
+              "dataclasses.asdict(t))(autotune.lookup(k)) "
+              "for k in json.loads(sys.argv[1])}))")
+
+
+def dry_cell(kind: str, setup_json: str = '{"device": "cuda"}') -> int:
+    """One of phase 13's dry runs, in a child process (fake tensors, no
+    device memory), printed as ``DRY <json>``: ``launcher`` is phase 10's
+    ``launch.train`` configuration on one device, ``mesh`` phase 12's on
+    a dry (data 2, model 2) mesh as each of its ranks, ``production``
+    h2o-danube-3-4b train_4k on 16x16 (``setup["smoke"]``: the smoke
+    configurations, for a rehearsal on the CPU)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.optim import adamw
+    setup = json.loads(setup_json)
+    device = None if setup["device"] == "cuda" else setup["device"]
+    t0 = time.time()
+    cfg, b, s, _ = _mesh_setup(setup)
+    if kind == "launcher":
+        if not setup.get("smoke"):
+            cfg = _full()
+        rec = dryrun.train_step_dry(cfg, adamw.AdamWConfig(lr=TRAIN_LR), b,
+                                    s, device=device)
+        out = {k: rec[k] for k in ("peak_bytes", "resident_bytes")}
+    elif kind == "mesh":
+        out = [{k: rec[k] for k in ("resident_bytes", "collective_count",
+                                    "wire_bytes", "peak_bytes")}
+               for rec in (dryrun.train_step_dry(
+                   cfg, _mesh_opt(), b, s,
+                   dict(zip(("data", "model"), MESH_SHAPE)), rank=r,
+                   device=device) for r in range(MESH_RANKS))]
+    else:
+        out = dryrun.run_cell("h2o-danube-3-4b", "train_4k", False,
+                              verbose=False)
+    print("DRY " + json.dumps({"seconds": time.time() - t0, "out": out}),
+          flush=True)
+    return 0
+
+
+def _dry_start(kinds, setup):
+    env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}
+    return {kind: subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+         "chip_smoke.dry_cell(sys.argv[1], sys.argv[2]))", kind,
+         json.dumps(setup)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for kind in kinds}
+
+
+def _dry_collect(procs):
+    out = {}
+    for kind, proc in procs.items():
+        text, _ = proc.communicate(timeout=DRY_TIMEOUT)
+        assert proc.returncode == 0, f"dry run {kind}:\n{text[-4000:]}"
+        out[kind] = json.loads(next(
+            line for line in text.splitlines()
+            if line.startswith("DRY "))[4:])
+    return out
+
+
+def dry_vs_mesh(dry, ranks):
+    """Phase 12's configuration, dry, against what its ranks counted: a
+    rank's resident bytes equal; its collectives and the bytes handed to
+    them equal the first step's and, with the loop's preemption check (a
+    4-byte flag all-reduced over both axes: 2 collectives, 8 bytes), the
+    second step's."""
+    assert len(dry) == len(ranks) == MESH_RANKS
+    for r, (d, m) in enumerate(zip(dry, ranks)):
+        assert d["resident_bytes"] == m["resident"], (r, d, m)
+        assert d["collective_count"] == m["collectives"][0], (r, d, m)
+        assert d["collective_count"] + 2 == m["collectives"][1], (r, d, m)
+        assert d["wire_bytes"] == m["wire"][0], (r, d, m)
+        assert d["wire_bytes"] + 8 == m["wire"][1], (r, d, m)
+    log(f"dry run of phase 12's configuration on a dry (data 2, model 2) "
+        f"mesh, rank for rank: resident bytes "
+        f"{[d['resident_bytes'] for d in dry]}, collectives a step "
+        f"{[d['collective_count'] for d in dry]}, bytes handed to them "
+        f"{[d['wire_bytes'] for d in dry]}, each equal to what phase 12's "
+        f"ranks counted (steps 1 and 2, the loop's preemption check apart)")
+
+
+def _tuned_entry(torch, timer, autotune, label, call, kern, plain, exact):
+    """Tune one call (``call(tune)`` through ``kernels.ops``), then hold
+    the winner's output to the heuristic's and to the plain version (bit
+    for bit where ``exact``, else within 2^-7 of max|plain|) and time the
+    two in turns.  Returns the printed row."""
+    keys = set(autotune._MEM)
+    call(True)
+    (key,) = set(autotune._MEM) - keys
+    entry, win = autotune._MEM[key], autotune.lookup(key)
+    knob = win.splits if win.splits is not None else win.br
+    y_w, y_h, y_p = kern(knob), kern(None), plain(knob)
+    torch.cuda.synchronize()
+    if exact:
+        assert torch.equal(y_w, y_h) and torch.equal(y_w, y_p), \
+            f"{label}: the tuned split's output differs"
+    else:
+        scale = y_p.float().abs().max().item()
+        for y in (y_w, y_h):
+            err = (y.float() - y_p.float()).abs().max().item()
+            assert err <= 2 ** -7 * scale, (label, err, scale)
+    assert torch.equal(call(False), y_w), f"{label}: ops != the winner"
+    assert entry["efficiency"] <= 1.0, (label, entry)
+    t_w, t_h = timer.rounds([lambda: kern(knob), lambda: kern(None)])
+    log(f"{label} | {knob} | {entry['us']:.2f} | {1e3 * t_w:.2f} "
+        f"{1e3 * t_h:.2f} | {entry['roofline_us']:.2f} "
+        f"{entry['efficiency']:.4f} | {entry['why']}")
+    return {"label": label, "winner": knob, "us": entry["us"],
+            "turns_us": [1e3 * t_w, 1e3 * t_h],
+            "roofline_us": entry["roofline_us"],
+            "efficiency": entry["efficiency"]}
+
+
+def _tune_kernels(torch, timer):
+    """B1 and B3 (int8) at danube's five linear shapes x TUNE_RS, B2 at
+    phase 3's decode geometry, each tuned through ``kernels.ops`` as the
+    engine calls it (bf16 activations and outputs); B2's verify rows at
+    the tuned split bit-equal to decode calls."""
+    from repro_torch.core import linear as sl
+    from repro_torch.core.compressed import CompressedSlided
+    from repro_torch.kernels import autotune, ops, ref
+    from repro_torch.kernels import fused_slide_matmul as fsm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import slide_matmul as smm
+
+    log("tuned entry | winner | tuned us | winner us heuristic us (in "
+        "turns, L2 flushed) | roofline_us efficiency | why")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows, keep = [], None
+    for name, mode in (("B1", "compressed"), ("B3", "slided")):
+        cfg = sl.SparsityConfig(pattern=(6, 8), mode=mode, recipe="int8")
+        rec, dec = cfg.recipe, cfg.decomposition()
+        for m, k in SHAPES:
+            w = (torch.randn((m, k), generator=gen, device="cuda")
+                 * k ** -0.5).to(torch.bfloat16)
+            p = sl.prepare({"w": w}, cfg)
+            for r in TUNE_RS:
+                x = torch.randn((r, k), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                if name == "B1":
+                    c = CompressedSlided(p["values"], p["indices"], k, 6, 8,
+                                         2, 4)
+                    qx = rec.quantize_act(x)
+
+                    def call(tune, x=x, c=c, p=p):
+                        return ops.compressed_matmul(
+                            x, c, s_w=p["s_w"], recipe=rec, tune=tune)
+
+                    def kern(splits, qx=qx, c=c, p=p):
+                        return smm.compressed_matmul_cuda(
+                            qx.q, c.values, c.indices, qx.scale, p["s_w"],
+                            n_fam=4, out_dtype=torch.bfloat16, splits=splits)
+
+                    def plain(_, qx=qx, c=c, p=p):
+                        return ref.compressed_matmul_dequant(
+                            qx.q, qx.scale, c, p["s_w"], torch.bfloat16)
+                else:
+                    def call(tune, x=x, p=p):
+                        return ops.slided_matmul_quant(
+                            x, p["sp_values"], p["sp_meta"], p["s_w"], dec,
+                            recipe=rec, out_dtype=torch.bfloat16, tune=tune)
+
+                    def kern(splits, x=x, p=p):
+                        return fsm.fused_slided_matmul_cuda(
+                            x, p["sp_values"], p["sp_meta"], p["s_w"],
+                            n_fam=4, out_dtype=torch.bfloat16, splits=splits)
+
+                    def plain(_, x=x, p=p):
+                        return ref.slided_matmul_sparse(
+                            x, p["sp_values"], p["sp_meta"], p["s_w"], dec,
+                            rec, torch.bfloat16)
+                rows.append(_tuned_entry(torch, timer, autotune,
+                                         f"{name} {m}x{k} R={r}", call, kern,
+                                         plain, True))
+            if name == "B3" and (m, k) == SHAPES[0]:
+                keep = (p, dec, rec)
+            del w, p
+
+    # B2 at phase 3's decode geometry, the table allocated for 3 more
+    # tokens a row (the verify lanes)
+    h, kvh, hd, ps, num_pages = 32, 8, 120, 16, 320
+    kv_len, b = [1000, 517, 77, 260], 4
+    maxp = -(-(max(kv_len) + 3) // ps) + 2
+    perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+    table = torch.zeros((b, maxp), dtype=torch.int32, device="cuda")
+    used = 0
+    for i, n_tok in enumerate(kv_len):
+        n = -(-(n_tok + 3) // ps)
+        table[i, :n] = perm[used:used + n].to(torch.int32)
+        used += n
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    pool = {n_: torch.randn((num_pages, ps, kvh, hd), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            for n_ in ("k", "v")}
+    q = torch.randn((b, 1, h, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    heur = pa.splits_for(b, kvh, maxp, ps, 1, h // kvh)
+    rows.append(_tuned_entry(
+        torch, timer, autotune, f"B2 decode B={b} maxp={maxp}",
+        lambda tune: ops.paged_attention(q, pool, table, kvl, tune=tune),
+        lambda s: pa.paged_attention_cuda(q, pool, table, kvl, None,
+                                          splits=s),
+        lambda s: ref.flash_paged_split(q, pool, table, kvl, None,
+                                        s or heur), False))
+    q4 = torch.randn((b, 4, h, hd), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    yv = ops.paged_attention(q4, pool, table, kvl)
+    for lane in range(4):
+        yd = ops.paged_attention(q4[:, lane:lane + 1].contiguous(), pool,
+                                 table, kvl + lane)
+        assert torch.equal(yv[:, lane:lane + 1], yd), \
+            f"B2 verify lane {lane} != a decode call at the tuned split"
+    log(f"B2 at the tuned split ({rows[-1]['winner']}; heuristic {heur}): "
+        f"each of a verify call's 4 lanes bit-equal to a decode call at "
+        f"kv_len + lane")
+    return rows, keep
+
+
+def _capture_tunes_nothing(torch, autotune, ops, keep):
+    """A call that asks to tune an untuned shape inside a CUDA graph
+    capture: no candidate is timed, nothing recorded, and the replay
+    equals the eager call (the heuristic's split)."""
+    p, dec, rec = keep
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.randn((64, SHAPES[0][1]), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+
+    def call(tune):
+        return ops.slided_matmul_quant(x, p["sp_values"], p["sp_meta"],
+                                       p["s_w"], dec, recipe=rec,
+                                       out_dtype=torch.bfloat16, tune=tune)
+    want = call(False)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call(False)
+    torch.cuda.current_stream().wait_stream(side)
+    timed, keys = autotune._COUNTS["timed"], set(autotune._MEM)
+    graph = torch.cuda.CUDAGraph()
+    with ops.recorded_launches():
+        with torch.cuda.graph(graph):
+            got = call(True)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert autotune._COUNTS["timed"] == timed, "a capture timed candidates"
+    assert set(autotune._MEM) == keys, "a capture recorded an entry"
+    assert torch.equal(got, want)
+    log("capture: a tune=True call of an untuned shape (B3 3840x3840 R=64) "
+        "inside a CUDA graph capture timed nothing and recorded nothing; "
+        "the replay equals the eager call")
+
+
+def phase_tuning(torch, card, want, training, mesh):
+    """Phase 13: the cost model's bounds, the autotuner on the card and
+    the dry run held against phases 10 and 12 (the module docstring)."""
+    import dataclasses
+    import os
+    import tempfile
+    from repro_torch.kernels import autotune, ops, roofline
+    from repro_torch.launch import analysis
+    t0 = time.time()
+    log("== phase 13: the cost model, the autotuner and the dry run ==")
+    dry = _dry_start(("production", "launcher", "mesh"), {"device": "cuda"})
+    tmp = tempfile.mkdtemp(prefix="autotune_")
+    saved = os.environ.get("REPRO_AUTOTUNE_CACHE")
+    os.environ["REPRO_AUTOTUNE_CACHE"] = f"{tmp}/autotune.json"
+    autotune.clear()
+    autotune._DISK_LOADED = False
+    try:
+        # (a) bounds: the published peaks are the constants this script
+        # divided by before the module, so every bound keeps its digits
+        pub = {k: roofline.peaks(k) for k in ("bfloat16", "int8")}
+        assert pub == {"bfloat16": roofline.Peaks(3350.0, 989e3),
+                       "int8": roofline.Peaks(3350.0, 1979e3)}, pub
+        assert BOUNDS["checked"] > 0
+        meas = roofline.measure_peaks()
+        log(f"peaks ({card}): published H100 SXM {pub['int8'].bw_gbps:.0f} "
+            f"GB/s, bf16 {pub['bfloat16'].gflops / 1e3:.0f} TFLOP/s, int8 "
+            f"{pub['int8'].gflops / 1e3:.0f} TOP/s; measured here "
+            f"(measure_peaks: 1 GiB copy, bf16 8192^3 matmul) "
+            f"{meas.bw_gbps:.1f} GB/s, bf16 {meas.gflops / 1e3:.1f} TFLOP/s; "
+            f"{BOUNDS['checked']} bounds of phases 2, 2b, 3 and 11 from "
+            f"roofline, each equal to its printed digit")
+
+        # (b) the autotuner: phase 5's slided weights and prompts drawn
+        # again (seed 0), the heuristic engine captured before any entry
+        # exists, then the tuning
+        cfg, params, prompts, ecfg = _engine_setup(torch, "slided")
+        base = _feature_engine(torch, cfg, params, ecfg)
+        timer = Timer(torch)
+        rows, keep = _tune_kernels(torch, timer)
+        keys = sorted(autotune._MEM)
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        child = subprocess.Popen([sys.executable, "-c", READ_TILES,
+                                  json.dumps(keys)], cwd=ROOT, env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+        _capture_tunes_nothing(torch, autotune, ops, keep)
+        del timer, keep
+        tuned = _feature_engine(torch, cfg, params, ecfg)
+        reqs = [(i, p, 2 * i) for i, p in enumerate(prompts)]
+        out, launches, _ = _serve_reqs(tuned, reqs)
+        assert _tokens(out) == want, "the tuned engine's streams differ"
+        spec = _feature_engine(torch, cfg, params, ecfg, speculate=3,
+                               draft_source="random")
+        s_out, s_launches, _ = _serve_reqs(spec, reqs)
+        assert _tokens(s_out) == want, "the tuned verify engine differs"
+        assert spec.stats.verify_steps > 0, spec.stats
+        log(f"tuned engine (slided, graphed): {len(out)} streams equal to "
+            f"phase 5's, one capture a step {tuned.captures}, launches "
+            f"{launches}; with speculate=3 (random drafts) "
+            f"{spec.stats.verify_steps} verify steps, streams equal too, "
+            f"captures {spec.captures}")
+        del spec
+        tok = _timed_turns(torch, {"heuristic": base, "tuned": tuned},
+                           prompts, want, card)
+        text, _ = child.communicate(timeout=120)
+        assert child.returncode == 0, text[-3000:]
+        got = json.loads(next(line for line in text.splitlines()
+                              if line.startswith("TILES "))[6:])
+        assert got == {k: dataclasses.asdict(autotune.lookup(k))
+                       for k in keys}, got
+        log(f"the cache file read in a child process: {len(got)} entries, "
+            f"each the same TileConfig")
+        del base, tuned, params
+        torch.cuda.empty_cache()
+
+        # (c) the dry run against what the card measured in this call
+        res = _dry_collect(dry)
+        peak = training["launcher"]["peak_device_gb"] * 1e9
+        pred = res["launcher"]["out"]["peak_bytes"]
+        err = (pred - peak) / peak
+        log(f"dry run of phase 10's configuration (one device, "
+            f"{res['launcher']['seconds']:.1f} s): peak "
+            f"{pred / 1e9:.3f} GB predicted, {peak / 1e9:.3f} GB "
+            f"max_memory_allocated measured ({err:+.4f}, gate "
+            f"{DRY_PEAK_RTOL}); resident "
+            f"{res['launcher']['out']['resident_bytes'] / 1e9:.3f} GB")
+        assert abs(err) <= DRY_PEAK_RTOL, (pred, peak)
+        dry_vs_mesh(res["mesh"]["out"], mesh["ranks"])
+        prod = res["production"]["out"]
+        assert prod["status"] == "ok", prod
+        from repro_torch.configs import registry, shapes
+        glob = analysis.model_flops_estimate(
+            registry.get("h2o-danube-3-4b"), shapes.SHAPES["train_4k"])
+        log(f"dry run, h2o-danube-3-4b train_4k on 16x16 as rank 0 "
+            f"({res['production']['seconds']:.1f} s): resident "
+            f"{prod['resident_bytes'] / 1e9:.4f} GB, peak "
+            f"{prod['peak_bytes'] / 1e9:.3f} GB "
+            f"({'fits' if prod['fits'] else 'does not fit'} in 80 GB), "
+            f"FLOPs a rank {prod['flops_per_rank']:.4e} = "
+            f"{prod['flops_per_rank'] / (glob / prod['chips']):.3f} x the "
+            f"model's 6ND / chips, collectives {prod['collective_count']}, "
+            f"dominant term {prod['roofline']['dominant']}")
+    finally:
+        for proc in dry.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if saved is None:
+            os.environ.pop("REPRO_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["REPRO_AUTOTUNE_CACHE"] = saved
+        autotune.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.time() - t0
+    log(f"phase 13 (cost model, autotuner, dry run): {seconds:.1f} s "
+        f"(budget {PHASE13_S} s; {card})")
+    assert seconds <= PHASE13_S, seconds
+    return {"rows": rows, "tok_s": tok, "seconds": seconds,
+            "dry": res, "peak_err": err}
+
+
+def host_step(other_ops: str, num_layers: int = 4, steps: int = 20,
+              rounds: int = 10) -> int:
+    """The host's cost of the kernel wrappers, for comparing two versions
+    of ``kernels/ops.py`` in turns in one process (not a phase of
+    ``main``): this tree's module and ``other_ops`` (another tree's
+    ``ops.py``, loaded in its place; its helpers are this tree's) take
+    turns, ``rounds`` times each, running h2o-danube-3-4b's eager decode
+    step (full width, ``num_layers`` layers, each sparse mode, B = 4;
+    ``steps`` steps a turn) and single calls of B1, B3 and B2
+    (``_host_calls``):
+
+        python3 -c "import chip_smoke as c; c.host_step(
+            '<tree>/src/repro_torch/kernels/ops.py')"
+
+    Prints ``HOST <json>``: for each module, the median µs to enqueue a
+    step (the host's work: no synchronize inside a step) and to finish
+    it, the kernel launches a step, and the µs of one call."""
+    import importlib.util
+    import inspect
+    import types
+    import numpy as np
+    import torch
+    import repro_torch.kernels  # noqa: F401
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import serve_loop
+    spec = importlib.util.spec_from_file_location(
+        "repro_torch.kernels._ops_other", other_ops)
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+
+    def thin(mod):
+        # the module with each wrapper the engine calls behind one more
+        # frame, which drops ``tune`` where ``mod``'s wrapper lacks it:
+        # both versions pay the same frame
+        ns = types.ModuleType(mod.__name__)
+        ns.__dict__.update(vars(mod))
+        for f in ("compressed_matmul", "slided_matmul_quant",
+                  "paged_attention"):
+            fn = getattr(mod, f)
+            if "tune" in inspect.signature(fn).parameters:
+                setattr(ns, f, lambda *a, _fn=fn, **kw: _fn(*a, **kw))
+            else:
+                setattr(ns, f, lambda *a, _fn=fn, tune=False, **kw:
+                        _fn(*a, **kw))
+        return ns
+    mods = {"this": thin(ops), "other": thin(other)}
+
+    def use(mod):
+        # every reference to the module (deferred imports read the
+        # package's attribute) now names ``mod``
+        for m in list(sys.modules.values()):
+            if getattr(m, "__name__", "").startswith("repro_torch"):
+                for k, v in list(vars(m).items()):
+                    if v is ops or any(v is x for x in mods.values()):
+                        setattr(m, k, mod)
+
+    out = {"other": other_ops}
+    try:
+        for mode in ("compressed", "slided"):
+            cfg, params, _, ecfg = _engine_setup(torch, mode,
+                                                 num_layers=num_layers)
+            eng = serve_loop.ServeEngine(params, cfg, ecfg, device="cuda",
+                                         _eager=True)
+            eng.warmup()
+            b = ecfg.max_batch
+            ptab, zero = eng.kv.page_table_array(), np.zeros(b)
+            got = {n: {"enq": [], "done": [], "launches": 0} for n in mods}
+            for r in range(rounds):
+                for name in (("this", "other") if r % 2 == 0
+                             else ("other", "this")):
+                    use(mods[name])
+                    for _ in range(3):
+                        eng._decode(zero, ptab, zero, zero)
+                    torch.cuda.synchronize()
+                    before = ops.launch_counts()
+                    for _ in range(steps):
+                        t0 = time.perf_counter()
+                        eng._decode(zero, ptab, zero, zero)
+                        t1 = time.perf_counter()
+                        torch.cuda.synchronize()
+                        got[name]["enq"].append(t1 - t0)
+                        got[name]["done"].append(time.perf_counter() - t0)
+                    after = ops.launch_counts()
+                    got[name]["launches"] = sum(
+                        after[k]["launches"] - before[k]["launches"]
+                        for k in after) / steps
+            out[mode] = {n: {"enqueue_us": 1e6 * float(np.median(g["enq"])),
+                             "step_us": 1e6 * float(np.median(g["done"])),
+                             "launches": g["launches"]}
+                         for n, g in got.items()}
+            del eng, params
+            torch.cuda.empty_cache()
+        calls = {n: [] for n in mods}
+        for r in range(rounds):
+            for name in (("this", "other") if r % 2 == 0
+                         else ("other", "this")):
+                use(mods[name])
+                calls[name].append(_host_calls(torch, mods[name]))
+        out["call_us"] = {n: {k: float(np.median([c[k] for c in cs]))
+                              for k in cs[0]} for n, cs in calls.items()}
+    finally:
+        use(ops)
+    print("HOST " + json.dumps(out), flush=True)
+    return 0
+
+
+def _host_calls(torch, ops, batches=3, calls=200):
+    """The host µs of one ``ops`` call, each of B1 and B3 (R = 4, int8)
+    and B2 (B = 4, danube's heads): the least over ``batches`` of
+    ``calls`` calls enqueued back to back.  The shapes are small, so the
+    device keeps up with the host and the loop reads the host's time."""
+    from repro_torch.core import linear as sl
+    from repro_torch.core.compressed import CompressedSlided
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    k = 256
+    x = torch.randn((4, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((k, k), generator=gen, device="cuda")
+         * k ** -0.5).to(torch.bfloat16)
+    cfg1 = sl.SparsityConfig(pattern=(6, 8), mode="compressed", recipe="int8")
+    cfg3 = sl.SparsityConfig(pattern=(6, 8), mode="slided", recipe="int8")
+    p1, p3 = sl.prepare({"w": w}, cfg1), sl.prepare({"w": w}, cfg3)
+    c = CompressedSlided(p1["values"], p1["indices"], k, 6, 8, 2, 4)
+    dec = cfg3.decomposition()
+    b, h, kvh, hd, ps, maxp = 4, 32, 8, 120, 16, 4
+    pool = {n: torch.randn((17, ps, kvh, hd), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+            for n in ("k", "v")}
+    table = torch.randint(1, 17, (b, maxp), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    kvl = torch.tensor([40, 21, 9, 60], dtype=torch.int32, device="cuda")
+    q = torch.randn((b, 1, h, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    fns = {"B1": lambda: ops.compressed_matmul(x, c, s_w=p1["s_w"],
+                                               recipe="int8"),
+           "B3": lambda: ops.slided_matmul_quant(
+               x, p3["sp_values"], p3["sp_meta"], p3["s_w"], dec,
+               recipe="int8"),
+           "B2": lambda: ops.paged_attention(q, pool, table, kvl)}
+    got = {}
+    for name, fn in fns.items():
+        best = float("inf")
+        for _ in range(batches + 1):  # the first batch warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / calls)
+        torch.cuda.synchronize()
+        got[name] = 1e6 * best
+    return got
 
 
 def main() -> int:
@@ -4318,6 +4909,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh = phase_mesh(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tuning = phase_tuning(torch, card, slided["tokens"], training, mesh)
     prof, tok_s = slided["profile"], slided["tok_s"]
     for label, pr in prof.items():
         log(f"slided decode step, {label}: {pr['step_ms']:.3f} ms, host "
@@ -4357,6 +4951,14 @@ def main() -> int:
             f"{tp['seconds']:.1f} s ({card})")
 
     report_mesh(mesh, card)
+    eff = [r["efficiency"] for r in tuning["rows"]]
+    log(f"autotuner (phase 13): {len(eff)} entries tuned, efficiency "
+        f"{min(eff):.4f}-{max(eff):.4f}; graphed slided decode tok/s in "
+        f"turns: heuristic {tuning['tok_s']['heuristic']:.2f}, tuned "
+        f"{tuning['tok_s']['tuned']:.2f} (phase 5's graphed "
+        f"{tok_s['graphed']:.2f}); dry peak vs phase 10 "
+        f"{tuning['peak_err']:+.4f}; phase 13 {tuning['seconds']:.1f} s "
+        f"({card})")
 
     def entry(name, source, replaces, n, err, st):
         # phase 12's ranks assert that no kernel launched in training

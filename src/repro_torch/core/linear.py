@@ -45,6 +45,9 @@ class SparsityConfig:
     # serve paged KV steps through the fused paged-attention kernel
     # instead of the gather-then-SDPA oracle
     fused_attention: bool = False
+    # one-shot tuning of the kernels' split counts per (op, shape) via
+    # kernels.autotune; winners are cached in-process and on disk
+    tune: bool = False
 
     def __post_init__(self):
         rec = precision.resolve(self.recipe, self.act_quant)
@@ -176,7 +179,8 @@ def apply(params: dict[str, Any], x: torch.Tensor, cfg: SparsityConfig,
             return done(kops.slided_matmul_quant(
                 x, params["sp_values"], params["sp_meta"], params["s_w"], dec,
                 recipe=rec, out_dtype=out_dtype or x.dtype,
-                activation=activation, act_absmax=act_absmax), x.dtype)
+                activation=activation, act_absmax=act_absmax,
+                tune=cfg.tune), x.dtype)
         y = slide.slided_matmul(x, params["w_slided"], dec).to(x.dtype)
         return done(ref.apply_activation(y, activation) if activation
                     else y, x.dtype)
@@ -186,7 +190,7 @@ def apply(params: dict[str, Any], x: torch.Tensor, cfg: SparsityConfig,
         dec.hw.m, dec.hw.n, packed=rec.packed_weights)
     return done(kops.compressed_matmul(
         x, c, s_w=params.get("s_w"), recipe=rec, out_dtype=out_dtype,
-        activation=activation, act_absmax=act_absmax),
+        activation=activation, act_absmax=act_absmax, tune=cfg.tune),
         rec.out_dtype(x.dtype))
 
 

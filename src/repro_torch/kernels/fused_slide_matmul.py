@@ -229,8 +229,8 @@ def fused_slided_matmul_cuda(x: torch.Tensor, values: torch.Tensor,
                              act: str = "int8", packed: bool = False,
                              out_dtype: torch.dtype = torch.float32,
                              activation: str | None = None,
-                             act_absmax: torch.Tensor | None = None
-                             ) -> torch.Tensor:
+                             act_absmax: torch.Tensor | None = None,
+                             splits: int | None = None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors.
 
     x: [R, K] bf16 | f32; (values, meta): the operand of
@@ -239,16 +239,20 @@ def fused_slided_matmul_cuda(x: torch.Tensor, values: torch.Tensor,
     the prologue quantizer.  out_dtype: bf16 or f32.  ``act_absmax``
     ([R] or [R, 1] fp32, contiguous): the rows' absmax the prologue
     quantizes with, in place of the absmax pass the launch otherwise
-    runs first.  The int8/w4 instances split gamma*K by
-    :func:`splits_for`."""
+    runs first.  The int8/w4 instances split gamma*K in ``splits``
+    (None: :func:`splits_for`); e4m3 takes 1."""
     bad = _bad_args(x, values, meta, s_w, bias, n_fam, act, packed,
                     out_dtype, activation, act_absmax)
     if bad is not None:
         raise ValueError(f"fused_slided_matmul_cuda: {bad}")
     rows, k = x.shape
     m = s_w.shape[0]
-    splits = 1 if act == "fp8" else splits_for(rows, m,
-                                               lifted_width(k, n_fam))
+    if act == "fp8":
+        splits = 1
+    elif splits is None:
+        splits = splits_for(rows, m, lifted_width(k, n_fam))
+    elif splits < 1:
+        raise ValueError(f"fused_slided_matmul_cuda: splits={splits} < 1")
 
     out = torch.empty((rows, m), dtype=out_dtype, device=x.device)
     amax = (act_absmax if act_absmax is not None else

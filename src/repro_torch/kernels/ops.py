@@ -9,18 +9,33 @@ version, and no kernel failure falls back to one.  The kernels are built
 with the global per-token absmax, so each rank's quantized activations
 are the unsharded run's: B1's path quantizes with it outside the kernel,
 B3 takes it in place of its own absmax pass.
+
+Launch knobs flow through ``autotune.tiles_for`` (JAX's key params:
+``pattern``, ``adt``, ``wdt``, and ``kvh`` / ``hd`` / ``qh`` / ``lanes``
+for B2; the port adds ``xdt`` / ``odt``, the activation and output
+dtypes): a cached entry gives B1's and B3's split of K and B2's split of
+the page table, ``tune=True`` searches where nothing is cached, and
+otherwise each wrapper launches its heuristic's value.  B4 and B5 take
+no run-time knob and launch without the autotuner.  A CPU tensor
+takes the plain version and never reaches the autotuner, as JAX's
+reference path skips it.
+
+A fake tensor (``torch._subclasses.FakeTensorMode``, the dry run) takes
+neither: the call returns an empty output of the kernel's shape and
+dtype and records the kernel's ``roofline.op_cost`` (``dry_costs``).
 """
 from __future__ import annotations
 
 import contextlib
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.core import precision
 from repro_torch.core.compressed import CompressedSlided
 from repro_torch.core.patterns import SlideDecomposition
 
-from . import ref
+from . import autotune, ref, roofline
 from . import fused_quant_slide as _fqs
 from . import fused_slide_matmul as _fsm
 from . import paged_attention as _pa
@@ -65,6 +80,96 @@ def recorded_launches():
             delta[name] = {k: after[name][k] - n for k, n in counts.items()}
 
 
+# op -> {"calls", "bytes", "flops"} of the kernel calls given fake tensors
+_DRY: dict[str, dict[str, float]] = {}
+
+
+def dry_costs() -> dict[str, dict[str, float]]:
+    """What the kernels given fake tensors would have cost, by op: calls
+    and the ``roofline.op_cost`` bytes and FLOPs summed over them."""
+    return {op: dict(c) for op, c in _DRY.items()}
+
+
+def reset_dry_costs() -> None:
+    _DRY.clear()
+
+
+def _dry(x: torch.Tensor, shape, dtype, keyfn, *args) -> torch.Tensor:
+    """The empty output of a kernel call on fake tensors, its
+    ``roofline.op_cost`` at ``keyfn(*args)`` = (op, rows, m, k, key
+    params) recorded."""
+    op, rows, m, k, params = keyfn(*args)
+    cost = roofline.op_cost(op, rows=rows, m=m, k=k, **params)
+    c = _DRY.setdefault(op, {"calls": 0, "bytes": 0.0, "flops": 0.0})
+    c["calls"] += 1
+    if cost is not None:
+        c["bytes"] += cost.bytes
+        c["flops"] += cost.flops
+    return torch.empty(shape, dtype=dtype, device=x.device)
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """A CUDA tensor launches the kernel; any other takes the plain
+    version (the one seam between the two, which a CPU test replaces)."""
+    return x.is_cuda
+
+
+def _tiles(tune: bool, run, operands: tuple, keyfn, *args,
+           priced_k=None) -> autotune.TileConfig:
+    """The call's knobs: ``autotune.tiles_for`` at ``keyfn(*args)`` =
+    (op, rows, m, k, key params), with a runner whose launches leave the
+    launch counters as they were (tuning is not the main path's).  The
+    key is a function of ``args`` alone, so ``(keyfn, *args)`` is the
+    memo under which a launch whose knobs are resolved already finds
+    them without building its key.  ``priced_k``: as ``tiles_for``'s."""
+    memo = (keyfn, *args)
+    if not tune:
+        got = autotune.resolved(memo)
+        if got is not None:
+            return got
+    op, rows, m, k, params = keyfn(*args)
+
+    def uncounted(t):
+        with recorded_launches():
+            return run(t)
+    return autotune.tiles_for(op, rows=rows, m=m, k=k, tune=tune,
+                              run=uncounted, operands=operands, memo=memo,
+                              priced_k=priced_k, **params)
+
+
+# The key functions: (op, rows, m, k, key params) of a kernel call from
+# its hashable shapes and types, the one description of each key.
+def _b1_key(rows, m, k, vdt, odt, act, weight, z, l):
+    vdt = roofline.dtype_name(vdt)
+    return "compressed_matmul", rows, m, k, dict(
+        pattern=f"{z}:{l}", adt=act or vdt, wdt=weight or vdt,
+        odt=roofline.dtype_name(odt))
+
+
+def _b2_key(b, lanes, maxp, page_size, kvh, hd, h, kvdt, qdt, window):
+    # JAX's key convention: rows = batch * lanes
+    return "paged_attention", b * lanes, kvh * hd, maxp * page_size, dict(
+        adt=roofline.dtype_name(kvdt), xdt=roofline.dtype_name(qdt),
+        kvh=kvh, hd=hd, qh=h, window=window or 0, lanes=lanes)
+
+
+def _b3_key(rows, m, k, xdt, odt, act, weight, z, l):
+    return "fused_slided_matmul", rows, m, k, dict(
+        pattern=f"{z}:{l}", xdt=roofline.dtype_name(xdt), adt=act,
+        wdt=weight, odt=roofline.dtype_name(odt), wfmt="2:4")
+
+
+def _b4_key(rows, k, xdt, act, z, l):
+    return "fused_quant_slide", rows, 0, k, dict(
+        pattern=f"{z}:{l}", xdt=roofline.dtype_name(xdt), adt=act)
+
+
+def _b5_key(rows, m, k, adt, wdt, odt):
+    return "quant_matmul", rows, m, k, dict(
+        adt=roofline.dtype_name(adt), wdt=roofline.dtype_name(wdt),
+        odt=roofline.dtype_name(odt))
+
+
 def _family(dec: SlideDecomposition) -> int:
     n = dec.source.family_n
     if n is None or dec.hw.m != 2 or dec.hw.n != 4:
@@ -84,10 +189,17 @@ def fused_quant_slide(x: torch.Tensor, dec: SlideDecomposition, recipe=None
     n = _family(dec)
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    if x2.is_cuda:
-        q, s = _fqs.fused_quant_slide_cuda(x2, n_fam=n, fp8=rec.act == "fp8")
+    rows, k = x2.shape
+    fp8 = rec.act == "fp8"
+    if isinstance(x2, FakeTensor):
+        q = _dry(x2, (rows, roofline.lifted_k(k, n)),
+                 torch.float8_e4m3fn if fp8 else torch.int8, _b4_key, rows,
+                 k, x2.dtype, rec.act, dec.source.z, dec.source.l)
+        s = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
+    elif _on_card(x2):
+        q, s = _fqs.fused_quant_slide_cuda(x2, n_fam=n, fp8=fp8)
     else:
-        q, s = ref.fused_quant_slide(x2, dec, fp8=rec.act == "fp8")
+        q, s = ref.fused_quant_slide(x2, dec, fp8=fp8)
     return q.reshape(lead + (q.shape[-1],)), s.reshape(lead + (1,))
 
 
@@ -101,7 +213,12 @@ def quant_matmul(q_x: torch.Tensor, s_x: torch.Tensor, q_w: torch.Tensor,
     lead = tuple(q_x.shape[:-1])
     x2 = q_x.reshape(-1, q_x.shape[-1]).contiguous()
     s2 = s_x.reshape(-1, 1).contiguous()
-    if x2.is_cuda:
+    rows, k = x2.shape
+    m = q_w.shape[0]
+    if isinstance(x2, FakeTensor):
+        y = _dry(x2, (rows, m), out_dtype, _b5_key, rows, m, k, x2.dtype,
+                 q_w.dtype, out_dtype)
+    elif _on_card(x2):
         y = _qmm.quant_matmul_cuda(x2, s2, q_w, s_w, bias,
                                    out_dtype=out_dtype, activation=activation)
     else:
@@ -114,8 +231,8 @@ def slided_matmul_quant(x: torch.Tensor, sp_values: torch.Tensor,
                         dec: SlideDecomposition, recipe="int8", out_dtype=None,
                         bias: torch.Tensor | None = None,
                         activation: str | None = None,
-                        act_absmax: torch.Tensor | None = None
-                        ) -> torch.Tensor:
+                        act_absmax: torch.Tensor | None = None,
+                        tune: bool = False) -> torch.Tensor:
     """The paper's GPU path as ONE kernel: per-token quantization and
     lifting in the GEMM prologue, so the lifted gamma*K activations never
     reach device memory.  int8 or e4m3 activations against the 2:4
@@ -131,11 +248,20 @@ def slided_matmul_quant(x: torch.Tensor, sp_values: torch.Tensor,
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     aa = _flat_absmax(act_absmax)
-    if x2.is_cuda:
-        y = _fsm.fused_slided_matmul_cuda(
-            x2, sp_values, sp_meta, s_w, bias, n_fam=n, act=rec.act,
-            packed=rec.packed_weights, out_dtype=out_dtype,
-            activation=activation, act_absmax=aa)
+    rows, k = x2.shape
+    m = s_w.shape[0]
+
+    args = (rows, m, k, x2.dtype, out_dtype, rec.act, rec.weight,
+            dec.source.z, dec.source.l)
+    if isinstance(x2, FakeTensor):
+        y = _dry(x2, (rows, m), out_dtype, _b3_key, *args)
+    elif _on_card(x2):
+        def run(t):
+            return _fsm.fused_slided_matmul_cuda(
+                x2, sp_values, sp_meta, s_w, bias, n_fam=n, act=rec.act,
+                packed=rec.packed_weights, out_dtype=out_dtype,
+                activation=activation, act_absmax=aa, splits=t.splits)
+        y = run(_tiles(tune, run, (x2, sp_values), _b3_key, *args))
     else:
         y = ref.slided_matmul_sparse(x2, sp_values, sp_meta, s_w, dec, rec,
                                      out_dtype, bias=bias,
@@ -154,7 +280,8 @@ def compressed_matmul(x: torch.Tensor, c: CompressedSlided,
                       s_w: torch.Tensor | None = None, recipe=None,
                       out_dtype=None, bias: torch.Tensor | None = None,
                       activation: str | None = None,
-                      act_absmax: torch.Tensor | None = None) -> torch.Tensor:
+                      act_absmax: torch.Tensor | None = None,
+                      tune: bool = False) -> torch.Tensor:
     """y = act(x @ decompress(c)^T + bias) — the SlideSparse linear.
 
     Quantized recipes need rowwise s_w [out, 1] and quantize x per token
@@ -166,6 +293,12 @@ def compressed_matmul(x: torch.Tensor, c: CompressedSlided,
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     n = _family(c.decomposition)
+    rows, m = x2.shape[0], c.indices.shape[0]
+    args = (rows, m, c.k, c.values.dtype, out_dtype, rec.act, rec.weight,
+            c.z, c.l)
+    if isinstance(x2, FakeTensor):
+        return _dry(x2, (rows, m), out_dtype, _b1_key,
+                    *args).reshape(lead + (m,))
     if rec.quantized:
         if s_w is None:
             raise ValueError(f"recipe {rec.name!r} needs s_w row scales")
@@ -175,11 +308,15 @@ def compressed_matmul(x: torch.Tensor, c: CompressedSlided,
                 f"{'nibble-packed' if rec.packed_weights else 'per-slot'} "
                 f"values but the operand has packed={c.packed}")
         aa = _flat_absmax(act_absmax)
-        if x2.is_cuda:
+        if _on_card(x2):
             qx = rec.quantize_act(x2, absmax=aa)
-            y = _smm.compressed_matmul_cuda(
-                qx.q, c.values, c.indices, qx.scale, s_w, bias, n_fam=n,
-                packed=c.packed, out_dtype=out_dtype, activation=activation)
+
+            def run(t):
+                return _smm.compressed_matmul_cuda(
+                    qx.q, c.values, c.indices, qx.scale, s_w, bias, n_fam=n,
+                    packed=c.packed, out_dtype=out_dtype,
+                    activation=activation, splits=t.splits)
+            y = run(_tiles(tune, run, (x2, c.values), _b1_key, *args))
         else:
             y = ref.compressed_matmul_quant(x2, c, s_w, rec, out_dtype,
                                             bias=bias, activation=activation,
@@ -190,10 +327,15 @@ def compressed_matmul(x: torch.Tensor, c: CompressedSlided,
                 f"float activations ({x2.dtype}) against {c.values.dtype}"
                 "-compressed weights: pass a quantized recipe with s_w row "
                 "scales, or compress float weights for the float path")
-        if x2.is_cuda:
-            y = _smm.compressed_matmul_cuda(
-                x2.to(c.values.dtype), c.values, c.indices, None, None, bias,
-                n_fam=n, out_dtype=out_dtype, activation=activation)
+        if _on_card(x2):
+            xv = x2.to(c.values.dtype)
+
+            def run(t):
+                return _smm.compressed_matmul_cuda(
+                    xv, c.values, c.indices, None, None, bias, n_fam=n,
+                    out_dtype=out_dtype, activation=activation,
+                    splits=t.splits)
+            y = run(_tiles(tune, run, (x2, c.values), _b1_key, *args))
         else:
             y = ref.compressed_matmul_fp(x2, c, out_dtype, bias=bias,
                                          activation=activation)
@@ -203,7 +345,8 @@ def compressed_matmul(x: torch.Tensor, c: CompressedSlided,
 def paged_attention(q: torch.Tensor, pool: dict, page_table: torch.Tensor,
                     kv_len: torch.Tensor, *,
                     sliding_window: int | None = None,
-                    row_exact: bool = True) -> torch.Tensor:
+                    row_exact: bool = True,
+                    tune: bool = False) -> torch.Tensor:
     """Fused paged flash attention over the page pool.
 
     q: [B, L, H, hd] post-RoPE queries; lane ``i`` of sequence ``b`` sees
@@ -213,16 +356,41 @@ def paged_attention(q: torch.Tensor, pool: dict, page_table: torch.Tensor,
     the kernel's decode (CUDA-core) instance, so lane ``i`` gives the bits
     of an L = 1 call at ``kv_len + i``; the prefill-chunk call site clears
     it to let bf16 queries take the tensor-core instance.  Returns
-    [B, L, H, hd] in q.dtype."""
+    [B, L, H, hd] in q.dtype.
+
+    The split count's key holds ``lanes=1`` for every ``row_exact`` call,
+    so a verify step takes a decode step's split (its rows then stay
+    bit-equal to decode calls, whose merge order the split fixes)."""
     if q.shape[2] % pool["k"].shape[2]:
         raise ValueError(f"q heads {q.shape[2]} not a multiple of kv heads "
                          f"{pool['k'].shape[2]}")
     window = int(sliding_window) if sliding_window is not None else None
-    if q.is_cuda:
-        return _pa.paged_attention_cuda(
-            q.contiguous(), pool, page_table.to(torch.int32).contiguous(),
-            kv_len.to(torch.int32).contiguous(), window, row_exact)
-    maxp, page_size = page_table.shape[1], pool["k"].shape[1]
+    b, lanes, h, hd = q.shape
+    maxp, page_size, kvh = page_table.shape[1], *pool["k"].shape[1:3]
+    args = (b, 1 if row_exact else lanes, maxp, page_size, kvh, hd, h,
+            pool["k"].dtype, q.dtype, window)
+    if isinstance(q, FakeTensor):
+        return _dry(q, q.shape, q.dtype, _b2_key, b, lanes, *args[2:])
+    if _on_card(q):
+        kvl = kv_len.to(torch.int32).contiguous()
+        run_args = (q.contiguous(), pool,
+                    page_table.to(torch.int32).contiguous(), kvl, window,
+                    row_exact)
+
+        def run(t):
+            return _pa.paged_attention_cuda(*run_args, splits=t.br)
+
+        def tokens():
+            # the mean over the batch of the tokens a sequence's call
+            # reads (lane i sees kv_len + i positions, at most the
+            # window's): a tuned entry's bound prices these, not the
+            # table's capacity
+            n = (kvl.to(torch.int64) + lanes - 1).clamp(max=maxp * page_size)
+            if window:
+                n = n.clamp(max=window + lanes - 1)
+            return n.double().mean().item()
+        return run(_tiles(tune, run, (q, pool["k"]), _b2_key, *args,
+                          priced_k=tokens))
     # the JAX CPU default: ~128 tokens per loop block
     block_pages = max(1, min(maxp, max(1, 128 // page_size)))
     return ref.flash_paged(q, pool, page_table, kv_len, window, block_pages)

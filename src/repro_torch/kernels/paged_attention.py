@@ -70,12 +70,14 @@ def _need(cond: bool, msg: str) -> None:
 def paged_attention_cuda(q: torch.Tensor, pool: dict,
                          page_table: torch.Tensor, kv_len: torch.Tensor,
                          window: int | None,
-                         row_exact: bool = True) -> torch.Tensor:
+                         row_exact: bool = True,
+                         splits: int | None = None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors; returns [B, L, H, hd] in q.dtype.
     ``row_exact`` keeps every query row on the CUDA-core instance a decode
     row takes (row i bit-equal to an L = 1 call at ``kv_len + i``); False
     lets bf16 queries over more than 16 rows per KV head take the
-    tensor-core instance, which rounds P to bf16."""
+    tensor-core instance, which rounds P to bf16.  ``splits``: the page
+    ranges S (None: :func:`splits_for`; at most the table's pages)."""
     _need(q.is_cuda, "q must be a CUDA tensor (CPU tensors take the plain "
           "version in kernels.ref)")
     b, lanes, h, hd = q.shape
@@ -110,7 +112,9 @@ def paged_attention_cuda(q: torch.Tensor, pool: dict,
 
     maxp = page_table.shape[1]
     rep = h // kvh
-    splits = splits_for(b, kvh, maxp, page_size, lanes, rep)
+    if splits is None:
+        splits = splits_for(b, kvh, maxp, page_size, lanes, rep)
+    _need(1 <= splits <= maxp, f"splits={splits} not in [1, {maxp}]")
     out = torch.empty_like(q)
     part = [None, None, None]
     if splits > 1:  # one scratch buffer: acc [rows, hd], then m, then l

@@ -80,14 +80,17 @@ def compressed_matmul_cuda(x: torch.Tensor, values: torch.Tensor,
                            bias: torch.Tensor | None = None, *, n_fam: int,
                            packed: bool = False,
                            out_dtype: torch.dtype = torch.float32,
-                           activation: str | None = None) -> torch.Tensor:
+                           activation: str | None = None,
+                           splits: int | None = None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors.
 
     x: [R, K] int8 | float8_e4m3fn (quantized recipes, s_x [R, 1] and
     s_w [M, 1] fp32 required) or bf16 | f32 (float path, values of the same
     dtype, scales ignored).  values: [M, 0.75K]-style slots ([M, slots/2]
     uint8/int8 bytes when ``packed``); indices: [M, slots] int8.  bias:
-    [M] fp32 or None.  out_dtype: bf16 or f32."""
+    [M] fp32 or None.  out_dtype: bf16 or f32.  ``splits``: the int8/w4
+    prefill instance's split count of K (None: ``prefill_splits``; the
+    other instances take 1)."""
     _need(x.is_cuda, "x must be a CUDA tensor (CPU tensors take the plain "
           "version in kernels.ref)")
     _need(n_fam in (2, 3, 4), f"n_fam={n_fam} not in (2, 3, 4)")
@@ -125,8 +128,11 @@ def compressed_matmul_cuda(x: torch.Tensor, values: torch.Tensor,
         _need(t.is_contiguous(), "operands must be contiguous")
 
     integer = x.dtype == torch.int8
-    splits = (prefill_splits(rows, m, k, n_fam)
-              if integer and rows > DECODE_MAX_R else 1)
+    if not (integer and rows > DECODE_MAX_R):
+        splits = 1
+    elif splits is None:
+        splits = prefill_splits(rows, m, k, n_fam)
+    _need(splits >= 1, f"splits={splits} < 1")
     out = torch.empty((rows, m), dtype=out_dtype, device=x.device)
     part = (torch.empty((splits, rows, m), dtype=torch.int32, device=x.device)
             if splits > 1 else None)

@@ -321,6 +321,22 @@ def pool_copy_pages(pool, src_ids, dst_ids):
     return pool
 
 
+# bytes the gather path's rearrange materializes per call (every table
+# slot's K/V page read at stored width + the int8 pools' fp32 scale rows,
+# the dequantized contiguous copy written): the counter that
+# ``kernels.roofline.pool_gather`` is held to in the tests, the bill the
+# fused paged-attention kernel deletes
+_GATHER_BYTES = [0.0]
+
+
+def reset_gather_bytes() -> None:
+    _GATHER_BYTES[0] = 0.0
+
+
+def gather_bytes() -> float:
+    return _GATHER_BYTES[0]
+
+
 def _pool_gather(pool, page_table, dtype):
     """page_table [B, maxp] -> contiguous logical K/V [B, maxp*P, KVH, hd].
     Unallocated entries point at page 0; every position read from them is
@@ -336,6 +352,13 @@ def _pool_gather(pool, page_table, dtype):
     if pool["k"].dtype == torch.int8:
         k = _dequant_kv(k, g(pool["k_scale"]), dtype)
         v = _dequant_kv(v, g(pool["v_scale"]), dtype)
+    tokens = b * maxp * pool["k"].shape[1]
+    kvh, hd = pool["k"].shape[2], pool["k"].shape[3]
+    by = 2.0 * tokens * kvh * hd * (pool["k"].element_size()
+                                    + dtype.itemsize)
+    if pool["k"].dtype == torch.int8:
+        by += 2.0 * tokens * kvh * 4.0              # fp32 scale rows
+    _GATHER_BYTES[0] += by
     return k.to(dtype), v.to(dtype)
 
 
@@ -355,7 +378,8 @@ def pool_attend(spec: AttnSpec, q, pool, page_table, kv_len,
         # to a decode step at kv_len + i (spec on == spec off)
         return kops.paged_attention(q, pool, page_table, kv_len,
                                     sliding_window=spec.sliding_window,
-                                    row_exact=chunk_start is None)
+                                    row_exact=chunk_start is None,
+                                    tune=sp_cfg.tune)
     kd, vd = _pool_gather(pool, page_table, q.dtype)
     if chunk_start is not None:
         return _chunked_sdpa(spec, q, kd, vd, q_offset=chunk_start)

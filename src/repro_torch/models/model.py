@@ -15,7 +15,7 @@ from typing import Any
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tree
 from repro_torch.configs.base import ModelConfig
 from . import encdec, transformer
 
@@ -118,3 +118,8 @@ def paged_verify_step(params, cfg: ModelConfig, tokens, cache, page_table,
 def paged_copy_pages(cfg: ModelConfig, cache, src_ids, dst_ids):
     """Copy-on-write page duplication across the whole stack."""
     return transformer.paged_copy_pages(cfg, cache, src_ids, dst_ids)
+
+
+def param_count(params) -> int:
+    """Elements over the tree's leaves (tensors of any device, meta too)."""
+    return sum(int(x.numel()) for x in tree.leaves(params))

@@ -18,7 +18,16 @@ CUDA support covers some collectives and not its point-to-point ops).
 
 ``Mesh.abstract`` builds a mesh from axis sizes alone, with no process
 group, so the sharding rules (``sharding.rules``) can be computed, and
-pieces cut, without ranks.
+pieces cut, without ranks.  ``Mesh.abstract(..., dry=True)`` also runs
+the collectives dry: each returns a tensor of the shape and dtype the
+real one returns (on fake tensors, the dry run's), counts in
+``collective_count`` / ``wire_bytes`` exactly as a real mesh counts, and
+communicates nothing.  Every collective, real or dry (and those of the
+tensor-parallel serving context, ``sharding.tp``), is also tallied by
+kind with its ring wire cost over its group of n ranks
+(``collectives_by_kind``): all-gather (n-1)/n of the gathered tensor,
+reduce-scatter (n-1)/n of its input, all-reduce 2(n-1)/n, a shift the
+tensor once.
 
 ``use_mesh`` / ``current_mesh`` mark the mesh a step runs over;
 ``constrain`` is the identity (its docstring says why).
@@ -34,6 +43,12 @@ import torch.distributed as dist
 
 _STATE = threading.local()
 _COUNTS = {"collectives": 0, "bytes": 0}
+# kind -> {"count", "bytes" (input tensors), "wire" (ring wire cost)}
+_KINDS: dict[str, dict[str, float]] = {}
+_WIRE = {"all-gather": lambda b, n: b * (n - 1),  # n x b gathered
+         "reduce-scatter": lambda b, n: b * (n - 1) / n,
+         "all-reduce": lambda b, n: 2.0 * b * (n - 1) / n,
+         "collective-permute": lambda b, n: float(b)}
 
 
 def collective_count() -> int:
@@ -50,6 +65,21 @@ def wire_bytes() -> int:
 def reset_counts() -> None:
     _COUNTS["collectives"] = 0
     _COUNTS["bytes"] = 0
+    _KINDS.clear()
+
+
+def record_collective(kind: str, nbytes: int, n: int) -> None:
+    """Tally one collective of ``kind`` over ``n`` ranks whose input
+    tensor holds ``nbytes``."""
+    c = _KINDS.setdefault(kind, {"count": 0, "bytes": 0, "wire": 0.0})
+    c["count"] += 1
+    c["bytes"] += nbytes
+    c["wire"] += _WIRE[kind](nbytes, n)
+
+
+def collectives_by_kind() -> dict[str, dict[str, float]]:
+    """{kind: {"count", "bytes", "wire"}} since the last ``reset_counts``."""
+    return {k: dict(v) for k, v in _KINDS.items()}
 
 
 def world_size() -> int:
@@ -87,6 +117,8 @@ class Mesh:
     ``axis``, in coordinate order) and ``device`` (where this rank's
     tensors live)."""
 
+    dry = False
+
     def __init__(self, sizes, axis_names, device=None):
         sizes = tuple(int(s) for s in sizes)
         axis_names = tuple(axis_names)
@@ -117,14 +149,17 @@ class Mesh:
         self._groups = {a: self.device_mesh.get_group(a) for a in axis_names}
 
     @classmethod
-    def abstract(cls, sizes: dict, rank: int = 0) -> "Mesh":
-        """A mesh of these axis sizes with no process group, on the CPU:
-        the rules and ``rules.shard`` work on it (as rank ``rank``), the
-        collectives do not."""
+    def abstract(cls, sizes: dict, rank: int = 0, dry: bool = False,
+                 device="cpu") -> "Mesh":
+        """A mesh of these axis sizes with no process group, on
+        ``device``: the rules and ``rules.shard`` work on it (as rank
+        ``rank``); the collectives raise, or with ``dry`` run dry (the
+        module docstring)."""
         self = cls.__new__(cls)
+        self.dry = dry
         self.axis_names = tuple(sizes)
         self.shape = {a: int(s) for a, s in sizes.items()}
-        self.device = torch.device("cpu")
+        self.device = torch.device(device)
         self.backend = None
         self.device_mesh = None
         self.rank = rank
@@ -159,10 +194,14 @@ class Mesh:
         return self.rank + (coord - self.coord(axis)) * stride
 
     # ------------------------------------------------------- collectives
-    def _host(self, x: torch.Tensor) -> torch.Tensor:
+    def _host(self, x: torch.Tensor, kind: str, n: int) -> torch.Tensor:
         x = x.contiguous()
+        nbytes = x.numel() * x.element_size()
         _COUNTS["collectives"] += 1
-        _COUNTS["bytes"] += x.numel() * x.element_size()
+        _COUNTS["bytes"] += nbytes
+        record_collective(kind, nbytes, n)
+        if self.dry:
+            return x
         if x.is_cuda and self.backend == "gloo":
             host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
             host.copy_(x)
@@ -178,7 +217,9 @@ class Mesh:
         n = self.axis_size(axis)
         if n == 1:
             return x
-        h = self._host(x)
+        h = self._host(x, "all-gather", n)
+        if self.dry:
+            return torch.cat([h] * n, dim)
         parts = [torch.empty_like(h) for _ in range(n)]
         dist.all_gather(parts, h, group=self.group(axis))
         return self._back(torch.cat(parts, dim), x)
@@ -190,9 +231,11 @@ class Mesh:
         n = self.axis_size(axis)
         if n == 1:
             return x
-        h = self._host(x.movedim(dim, 0))
+        h = self._host(x.movedim(dim, 0), "reduce-scatter", n)
         out = torch.empty((h.shape[0] // n,) + tuple(h.shape[1:]),
                           dtype=h.dtype, device=h.device)
+        if self.dry:
+            return out.movedim(0, dim)
         # reduce_scatter_single where torch has it (reduce_scatter_tensor,
         # the same call, is deprecated there)
         rs = getattr(dist, "reduce_scatter_single", None) or \
@@ -208,13 +251,16 @@ class Mesh:
                 if self.axis_size(a) > 1]
         if not axes:
             return x
-        h = self._host(x)
+        h = self._host(x, "all-reduce", self.axis_size(axes[0]))
         h = h.clone() if h is x else h
         for i, a in enumerate(axes):
             if i:
+                nbytes = h.numel() * h.element_size()
                 _COUNTS["collectives"] += 1
-                _COUNTS["bytes"] += h.numel() * h.element_size()
-            dist.all_reduce(h, op=red, group=self.group(a))
+                _COUNTS["bytes"] += nbytes
+                record_collective("all-reduce", nbytes, self.axis_size(a))
+            if not self.dry:
+                dist.all_reduce(h, op=red, group=self.group(a))
         return self._back(h, x)
 
     def shift(self, x: torch.Tensor, axis: str, step: int = 1):
@@ -225,8 +271,10 @@ class Mesh:
         if n == 1:
             return x
         c = self.coord(axis)
-        h = self._host(x)
+        h = self._host(x, "collective-permute", n)
         out = torch.empty_like(h)
+        if self.dry:
+            return out
         group = self.group(axis)
         ops = [dist.P2POp(dist.isend, h, self.peer(axis, (c + step) % n),
                           group),

@@ -41,7 +41,12 @@ runs the same kernels as a single-device engine on its local shapes.
 The paged KV pool is allocated per rank at KVH/tp heads and the SSM state
 at d_inner/tp and heads/tp (``models.transformer`` under an active
 context); the page structure and page table are the same on every rank.
-Every collective counts one in ``_COUNTS`` (``collective_count``).
+Every collective counts one in ``_COUNTS`` (``collective_count``) and is
+tallied by kind in ``sharding.ctx.collectives_by_kind``.
+:func:`activate_dry` marks a step as rank ``rank`` of ``size`` ranks
+with no process group: its collectives return tensors of the real ones'
+shapes and dtypes (on fake tensors, the dry run's), count as real ones
+count, and communicate nothing.
 """
 from __future__ import annotations
 
@@ -53,7 +58,16 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-_STATE = threading.local()
+from . import ctx as _ctx
+
+
+class _State(threading.local):
+    # a thread without a context reads the class attribute: no
+    # AttributeError raised and caught on each kernel launch's lookup
+    ctx = None
+
+
+_STATE = _State()
 _COUNTS = {"collectives": 0}
 
 # parent-dict names -> role (see the module docstring's table)
@@ -72,10 +86,11 @@ class TPContext:
     group: Any = None
     size: int = 1
     rank: int = 0
+    dry: bool = False
 
 
 def current() -> TPContext | None:
-    return getattr(_STATE, "ctx", None)
+    return _STATE.ctx
 
 
 def size() -> int:
@@ -103,6 +118,18 @@ def activate(group=None):
         _STATE.ctx = prev
 
 
+@contextlib.contextmanager
+def activate_dry(size: int, rank: int = 0):
+    """Mark the dynamic extent as rank ``rank``'s share of a step over
+    ``size`` ranks that do not exist: the collectives run dry."""
+    prev = current()
+    _STATE.ctx = TPContext(group=None, size=size, rank=rank, dry=True)
+    try:
+        yield
+    finally:
+        _STATE.ctx = prev
+
+
 def collective_count() -> int:
     return _COUNTS["collectives"]
 
@@ -113,16 +140,22 @@ def reset_counts() -> None:
 
 def _all_reduce(x: torch.Tensor, op, ctx: TPContext) -> torch.Tensor:
     out = x.contiguous().clone()
-    dist.all_reduce(out, op=op, group=ctx.group)
+    if not ctx.dry:
+        dist.all_reduce(out, op=op, group=ctx.group)
     _COUNTS["collectives"] += 1
+    _ctx.record_collective("all-reduce", out.numel() * out.element_size(),
+                           ctx.size)
     return out
 
 
 def _all_gather(x: torch.Tensor, ctx: TPContext) -> list[torch.Tensor]:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(ctx.size)]
-    dist.all_gather(parts, x, group=ctx.group)
+    if not ctx.dry:
+        dist.all_gather(parts, x, group=ctx.group)
     _COUNTS["collectives"] += 1
+    _ctx.record_collective("all-gather", x.numel() * x.element_size(),
+                           ctx.size)
     return parts
 
 

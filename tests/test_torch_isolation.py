@@ -55,3 +55,12 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 def test_no_source_imports_jax_or_repro(path):
     assert path.exists(), path
     assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
+
+
+def test_cost_model_autotuner_and_dry_run_are_covered():
+    """The cost model, the autotuner and the dry run are among the
+    modules imported above with JAX and the JAX package blocked."""
+    assert {"repro_torch.kernels.roofline", "repro_torch.kernels.autotune",
+            "repro_torch.configs.shapes", "repro_torch.launch.op_cost",
+            "repro_torch.launch.analysis",
+            "repro_torch.launch.dryrun"} <= set(MODULES)
