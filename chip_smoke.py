@@ -207,15 +207,32 @@ Phases (any failed check exits nonzero):
    equal to phase 12's ranks' resident bytes, collectives and their
    bytes, rank for rank, and h2o-danube-3-4b train_4k on 16x16; the
    phase within PHASE13_S seconds;
-14. a ``kernels`` JSON line (the five kernels, launches of the
+14. the library API and the examples (ROADMAP A.1, A.2): (a)
+   ``launch.quickstart.run`` on the card (w [512, 1024], x [64, 1024],
+   seeded): B1's fp32 instance and B3 each launched (their counts rise),
+   B3's output bit-equal to ``ref.slided_matmul_quant`` and B1's within
+   QUICK_TOL of ``ref.compressed_matmul_fp``, max |compressed - dense|
+   and max |slided - dense| within QUICK_TOL, the storage 1048576 ->
+   884736 bytes, the int8 mean relative error within QUICK_INT8_REL, and
+   ``python -m repro_torch.launch.quickstart`` exiting 0 as a child; (b)
+   ``launch.sparsity_sweep.sweep`` at int8, its steps sized from a timed
+   probe of one regime to about SWEEP_S seconds: every loss finite, each
+   regime's last tenth below its first, its table beside JAX's CPU
+   figures and Figure 2's ordering printed as a finding; (c) ``python -m
+   repro_torch.launch.train_tiny_lm --int8-opt --sparse 6 8`` as a child
+   to TINY_STEPS and rerun to twice that (resumed from its checkpoint,
+   the loss falling), beside (b); the phase within PHASE14_S seconds;
+15. a ``kernels`` JSON line (the five kernels, launches of the
    h2o-danube-3-4b runs, and B3's act_absmax instance with the launches
-   of phase 11's slided run; phase 12's zero launches), the card line,
-   and the final result line.
+   of phase 11's slided run; phase 12's zero launches; phase 14's
+   quickstart launches), the card line, and the final result line.
 
 It imports neither JAX nor the JAX package, and prints every table it
 measures on standard output.
 """
 import json
+import math
+import re
 import shutil
 import subprocess
 import sys
@@ -4655,6 +4672,280 @@ def phase_tuning(torch, card, want, training, mesh):
             "dry": res, "peak_err": err}
 
 
+# ---------------------------------------------------------------- phase 14
+QUICK_TOL = 1e-4      # fp32, K = 1024, |y| < 8: max |compressed - dense|,
+                      # max |slided - dense|, and B1's float instance vs
+                      # its plain version (fp32 FMAs summed in another
+                      # order; a few ulps of 8 = 4.8e-7 each)
+QUICK_INT8_REL = 0.05  # the w8a8 mean relative error (JAX's CPU run 0.0306)
+QUICK_BYTES = (1048576, 884736)  # bf16 dense -> values + 2-bit metadata
+SWEEP_S = 50          # the sweep's five regimes on the card, its probe aside
+SWEEP_PROBE = 12      # steps of the probe that times one (6:8) regime
+SWEEP_BATCH, SWEEP_SEQ = 8, 128   # examples/sparsity_sweep.py's defaults
+# examples/sparsity_sweep.py --steps 150 --precision int8 (JAX) on a CPU,
+# as PERF.md quotes it: final loss and int8 eval loss per regime
+JAX_SWEEP = {"dense": (5.7140, 5.6596), "10:12": (5.7132, 5.6589),
+             "6:8": (5.7153, 5.6662), "4:6": (5.7143, 5.6624),
+             "2:4": (5.7139, 5.6623)}
+TINY_STEPS = 20       # train_tiny_lm: N steps, then a rerun to 2N
+TINY_TIMEOUT = 300
+PHASE14_S = 90        # the phase's budget on the card
+_TINY_LOSS = re.compile(r"\[tiny-lm\] loss (\S+) -> (\S+) over (\d+) steps")
+
+
+def _tiny_lm_chain(ckpt_dir: str) -> list[str]:
+    """``python -m repro_torch.launch.train_tiny_lm`` to TINY_STEPS, then
+    rerun to twice that from its checkpoint (6:8 masked, int8 moments, on
+    the card); each run's output (a failed run raises)."""
+    import os
+    outs = []
+    for steps in (TINY_STEPS, 2 * TINY_STEPS):
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train_tiny_lm",
+             "--steps", str(steps), "--ckpt-dir", ckpt_dir, "--int8-opt",
+             "--sparse", "6", "8"], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, timeout=TINY_TIMEOUT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        outs.append(r.stdout)
+        assert r.returncode == 0, \
+            f"train_tiny_lm --steps {steps} exited {r.returncode}:\n" \
+            f"{r.stdout[-3000:]}"
+    return outs
+
+
+def _quickstart_on_card(torch, card):
+    """(a) ``quickstart.run`` on the card: B1 (fp32 instance) and B3
+    launched, each held against its plain version, the figures gated."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import quickstart
+    before = ops.launch_counts()
+    q = quickstart.run(*quickstart.draw("cuda"), "cuda")
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    n = {k: after[k]["launches"] - before[k]["launches"]
+         for k in ("compressed_matmul", "fused_slided_matmul")}
+    assert n["compressed_matmul"] >= 1 and n["fused_slided_matmul"] >= 1, n
+    plain3 = ref.slided_matmul_quant(q["x"], q["ws_q"], q["s_w"], q["dec"],
+                                     "int8", torch.float32)
+    assert torch.equal(q["y_int8"], plain3), \
+        "quickstart: B3 differs from its plain version"
+    plain1 = ref.compressed_matmul_fp(q["x"], q["c"], torch.float32)
+    b1_err = (q["y_compressed"] - plain1).abs().max().item()
+    assert b1_err <= QUICK_TOL, f"quickstart: B1 vs plain {b1_err}"
+    assert q["compressed_err"] <= QUICK_TOL, q["compressed_err"]
+    assert q["slided_err"] <= QUICK_TOL, q["slided_err"]
+    assert (q["dense_bytes"], q["compressed_bytes"]) == QUICK_BYTES
+    assert q["int8_rel_err"] <= QUICK_INT8_REL, q["int8_rel_err"]
+    log(f"quickstart on the card: launches B1 {n['compressed_matmul']} "
+        f"(fp32 instance, R = 64), B3 {n['fused_slided_matmul']} (int8, "
+        f"R = 64); B3 == plain bit for bit, B1 vs plain {b1_err:.3e} (gate "
+        f"{QUICK_TOL}); max |slided - dense| {q['slided_err']:.3e}, max "
+        f"|compressed - dense| {q['compressed_err']:.3e}; storage "
+        f"{q['dense_bytes']} B -> {q['compressed_bytes']} B; int8 mean rel "
+        f"err {q['int8_rel_err']:.4f} (gate {QUICK_INT8_REL}; {card})")
+    return {"launches": n, "b1_err": b1_err,
+            **{k: q[k] for k in ("slided_err", "compressed_err",
+                                 "int8_rel_err")}}
+
+
+def _sweep_on_card(torch, card):
+    """(b) the sparsity sweep at int8, its steps sized from a timed probe
+    of one regime so the five regimes take about SWEEP_S seconds."""
+    import argparse
+    import statistics
+    from repro_torch.launch import sparsity_sweep as sw
+    probe = sw.train_regime(sw.regime_config(sw.base_config(), (6, 8)),
+                            SWEEP_PROBE, SWEEP_BATCH, SWEEP_SEQ, "cuda")
+    step_s = statistics.median(probe["step_seconds"][2:])
+    steps = max(10, int(SWEEP_S / (len(sw.REGIMES) * step_s)))
+    log(f"sweep probe (6:8, {SWEEP_PROBE} steps of {SWEEP_BATCH} x "
+        f"{SWEEP_SEQ}): median step {step_s * 1e3:.3f} ms -> {steps} steps "
+        f"a regime for ~{SWEEP_S} s ({card})")
+    t0 = time.time()
+    res = sw.sweep(argparse.Namespace(steps=steps, batch=SWEEP_BATCH,
+                                      seq=SWEEP_SEQ, precision="int8"),
+                   "cuda")
+    seconds = time.time() - t0
+    k = max(1, steps // 10)
+    for name, (losses, final, qloss) in res.items():
+        assert len(losses) == steps and all(
+            math.isfinite(v) for v in losses + [qloss]), (name, losses)
+        first, last = statistics.mean(losses[:k]), statistics.mean(
+            losses[-k:])
+        assert last < first, (name, first, last)
+    log(f"sweep ({steps} steps a regime, {seconds:.1f} s; JAX's run: "
+        f"{len(JAX_SWEEP)} regimes x 150 steps on a CPU)")
+    log("pattern  final-loss  int8-eval-loss | JAX final  JAX int8-eval")
+    for name, (_, final, qloss) in res.items():
+        jf, jq = JAX_SWEEP[name]
+        log(f"{name:>7}  {final:.4f}  {qloss:.4f} | {jf:.4f}  {jq:.4f}")
+    final = {name: r[1] for name, r in res.items()}
+    log(f"Figure 2's ordering (a finding, not a gate): dense <= 6:8 "
+        f"{final['dense'] <= final['6:8']}, 6:8 < 2:4 "
+        f"{final['6:8'] < final['2:4']}, dense < 2:4 "
+        f"{final['dense'] < final['2:4']} (final losses over the last "
+        f"{k} steps; {card})")
+    return {"steps": steps, "probe_step_ms": step_s * 1e3,
+            "seconds": seconds,
+            "regimes": {n: {"final": r[1], "int8_eval": r[2],
+                            "first": statistics.mean(r[0][:k])}
+                        for n, r in res.items()}}
+
+
+def _tiny_lm_check(outs, card):
+    """(c) the tiny LM's two runs: the second resumed at TINY_STEPS, the
+    loss fell."""
+    runs = []
+    for label, text in zip(("first", "resumed"), outs):
+        for line in text.splitlines():
+            log(f"  [train_tiny_lm {label}] {line}")
+        m = _TINY_LOSS.search(text)
+        assert m, text[-2000:]
+        runs.append((float(m.group(1)), float(m.group(2)), int(m.group(3))))
+    assert f"[train] resumed from step {TINY_STEPS}" in outs[1], outs[1]
+    (a0, a1, n0), (_, b1, n1) = runs
+    assert (n0, n1) == (TINY_STEPS, 2 * TINY_STEPS), runs
+    assert a1 < a0 and b1 < a0, runs
+    step = re.search(r"median step (\S+) ms", outs[1])
+    size = re.search(r"(\S+M) params", outs[0])
+    log(f"tiny LM ({size.group(1)} params, 6:8 masked, int8 moments, 8 x "
+        f"256): loss "
+        f"{a0:.4f} -> {a1:.4f} in {n0} steps, resumed from step {n0} to "
+        f"{b1:.4f} at step {n1}; median step "
+        f"{step.group(1) if step else 'not measured'} ms ({card})")
+    return {"runs": runs, "step_ms": float(step.group(1)) if step else None}
+
+
+def phase_library(torch, card):
+    """Phase 14: the library API and the examples (the module docstring).
+    The children (the quickstart as a command, the tiny LM's two runs)
+    run beside the in-process sweep."""
+    import concurrent.futures
+    import os
+    import tempfile
+    t0 = time.time()
+    log("== phase 14: the library API and the examples ==")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    quick = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.quickstart"], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        try:
+            tiny = pool.submit(_tiny_lm_chain, ckpt_dir)
+            out = {"quickstart": _quickstart_on_card(torch, card)}
+            out["sweep"] = _sweep_on_card(torch, card)
+            text, _ = quick.communicate(timeout=TINY_TIMEOUT)
+            for line in text.splitlines():
+                log(f"  [quickstart] {line}")
+            assert quick.returncode == 0, \
+                f"python -m repro_torch.launch.quickstart exited " \
+                f"{quick.returncode}"
+            out["tiny_lm"] = _tiny_lm_check(tiny.result(), card)
+        finally:
+            if quick.poll() is None:
+                quick.kill()
+                quick.wait()
+            pool.shutdown(wait=True)
+    out["seconds"] = time.time() - t0
+    log(f"phase 14 (library API and examples): {out['seconds']:.1f} s "
+        f"(budget {PHASE14_S} s; {card})")
+    assert out["seconds"] <= PHASE14_S, out["seconds"]
+    return out
+
+
+TRACE_STEPS = 5       # small_train_trace: steps timed, then steps traced
+
+
+def small_train_trace() -> dict:
+    """Where a small model's training step goes (not a phase of
+    ``main``): the sweep's 6:8 model (SWEEP_BATCH x SWEEP_SEQ, fp32
+    moments) and the tiny LM (6:8 masked, int8 moments, 8 x 256), each
+    alone on the card as its launcher trains it (``steps.train_step``,
+    the loss read back).  After two warm-up steps, TRACE_STEPS steps are
+    timed without the profiler (median wall), then TRACE_STEPS more are
+    traced: device time a step (the union of device activity), device
+    operations a step, and the device idle share against the untraced
+    wall time.  Not gated:
+
+        python3 -c "import chip_smoke as c; c.small_train_trace()"
+    """
+    import statistics
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import sparsity_sweep as sw
+    from repro_torch.launch import train_tiny_lm as tl
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    card = card_line()
+    cases = {"sweep": (sw.regime_config(sw.base_config(), (6, 8)),
+                       adamw.AdamWConfig(lr=3e-3), SWEEP_BATCH, SWEEP_SEQ),
+             "tiny LM": (tl.hundred_m_config("h2o-danube-3-4b", (6, 8)),
+                         adamw.AdamWConfig(lr=3e-3, state_dtype="int8"),
+                         8, 256)}
+    out = {}
+    for label, (cfg, opt, batch, seq) in cases.items():
+        params = M.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+        st = adamw.init(params, opt)
+        pipe = SyntheticLM(cfg, batch, seq, seed=0, device="cuda")
+        it = iter(range(2 + 2 * TRACE_STEPS))
+
+        def step():
+            nonlocal params, st
+            params, st, m = steps.train_step(cfg, opt, params, st,
+                                             pipe.device_batch_at(next(it)))
+            float(m["loss"])
+        for _ in range(2):
+            step()
+        walls = []
+        for _ in range(TRACE_STEPS):
+            t0 = time.perf_counter()
+            step()
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(TRACE_STEPS):
+                step()
+            traced = (time.perf_counter() - t0) / TRACE_STEPS
+        dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not e.is_user_annotation)
+        assert dev, f"trace {label}: no device activity recorded"
+        busy, end, by = 0.0, dev[0][0], {}
+        for a, b, name in dev:
+            by[name] = by.get(name, 0.0) + b - a
+            a = max(a, end)
+            if b > a:
+                busy += b - a
+                end = b
+        device_ms = busy / TRACE_STEPS / 1e3
+        ops_a_step = len(dev) / TRACE_STEPS
+        idle = max(0.0, 1 - device_ms / (wall * 1e3))
+        log(f"trace, one {label} training step ({M.param_count(params)} "
+            f"params, {batch} x {seq}): wall {wall * 1e3:.3f} ms untraced "
+            f"(steps {', '.join(f'{w * 1e3:.3f}' for w in walls)}), "
+            f"{traced * 1e3:.3f} ms traced; device time {device_ms:.3f} ms "
+            f"in {ops_a_step:.0f} device operations; device idle share "
+            f"{idle:.3f} ({card})")
+        for name, us in sorted(by.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"  top device op ({label}): {us / TRACE_STEPS / 1e3:.3f} "
+                f"ms a step  {name[:90]}")
+        out[label] = {"wall_ms": wall * 1e3, "traced_ms": traced * 1e3,
+                      "device_ms": device_ms, "device_ops": ops_a_step,
+                      "idle_share": idle}
+        del params, st
+        torch.cuda.empty_cache()
+    print("TRACE " + json.dumps(out), flush=True)
+    return out
+
+
 def host_step(other_ops: str, num_layers: int = 4, steps: int = 20,
               rounds: int = 10) -> int:
     """The host's cost of the kernel wrappers, for comparing two versions
@@ -4912,6 +5203,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tuning = phase_tuning(torch, card, slided["tokens"], training, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    library = phase_library(torch, card)
     prof, tok_s = slided["profile"], slided["tok_s"]
     for label, pr in prof.items():
         log(f"slided decode step, {label}: {pr['step_ms']:.3f} ms, host "
@@ -4959,13 +5253,26 @@ def main() -> int:
         f"{tok_s['graphed']:.2f}); dry peak vs phase 10 "
         f"{tuning['peak_err']:+.4f}; phase 13 {tuning['seconds']:.1f} s "
         f"({card})")
+    sw, tl = library["sweep"], library["tiny_lm"]
+    log(f"library and examples (phase 14): quickstart launches "
+        f"{library['quickstart']['launches']}; sweep {sw['steps']} steps a "
+        f"regime, final / int8 eval losses " + ", ".join(
+            f"{n} {r['final']:.4f} / {r['int8_eval']:.4f}"
+            for n, r in sw["regimes"].items())
+        + f"; tiny LM median step {tl['step_ms']} ms; phase 14 "
+        f"{library['seconds']:.1f} s ({card})")
+
+    quick = library["quickstart"]["launches"]
 
     def entry(name, source, replaces, n, err, st):
-        # phase 12's ranks assert that no kernel launched in training
+        # phase 12's ranks assert that no kernel launched in training;
+        # phase 14's quickstart launches B1 and B3
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces, "launches": n,
-                "mesh_training_launches": 0, "max_abs_err": err,
+                "mesh_training_launches": 0,
+                "quickstart_launches": quick.get(name, 0),
+                "max_abs_err": err,
                 "ms": st["ms"], "kernel_ms": st["ms"],
                 "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                 "bound_by": st["bound_by"], "library_ms": st["library_ms"]}

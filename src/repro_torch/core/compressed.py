@@ -35,6 +35,15 @@ class CompressedSlided:
                                   HardwarePattern(self.m, self.n))
 
     @property
+    def nbytes_values(self) -> int:
+        return self.values.numel() * self.values.element_size()
+
+    @property
+    def nbytes_meta_packed(self) -> int:
+        # 2-bit indices, 16 per int32 word
+        return (self.indices.numel() + 15) // 16 * 4
+
+    @property
     def slots(self) -> int:
         """Per-row compressed slot count (== indices width)."""
         return self.indices.shape[-1]

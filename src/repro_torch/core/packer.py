@@ -8,6 +8,7 @@ bit-identical to the JAX packer on the same inputs.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .patterns import Pattern, SlideDecomposition
@@ -44,11 +45,64 @@ def pack_slided(w: torch.Tensor, dec: SlideDecomposition) -> torch.Tensor:
     return out.reshape(lead + (g * nw * n,))
 
 
+def pack_slided_ref(w: np.ndarray, dec: SlideDecomposition) -> np.ndarray:
+    """Literal per-row Algorithm 2 (the paper's pseudocode), numpy oracle."""
+    l, n, m, s, nw = (dec.source.l, dec.hw.n, dec.hw.m, dec.hw.stride,
+                      dec.num_windows)
+    w = np.asarray(w)
+    w2 = w.reshape(-1, w.shape[-1])
+    rows, k = w2.shape
+    g = k // l
+    out = np.zeros((rows, g * nw * n), dtype=w2.dtype)
+    for r in range(rows):
+        used = np.zeros(k, dtype=bool)
+        for gg in range(g):
+            for ll in range(nw):
+                b = l * gg + s * ll
+                cnt = 0
+                for d in range(n):
+                    if w2[r, b + d] != 0 and not used[b + d] and cnt < m:
+                        out[r, (nw * n) * gg + n * ll + d] = w2[r, b + d]
+                        used[b + d] = True
+                        cnt += 1
+    return out.reshape(w.shape[:-1] + (g * nw * n,))
+
+
 def slided_window_view(ws: torch.Tensor, dec: SlideDecomposition):
     """Reshape a slided [..., gamma*K] tensor to windows [..., G, w, n]."""
     n, nw = dec.hw.n, dec.num_windows
     g = ws.shape[-1] // (nw * n)
     return ws.reshape(tuple(ws.shape[:-1]) + (g, nw, n))
+
+
+def unslide(ws: torch.Tensor, dec: SlideDecomposition) -> torch.Tensor:
+    """Inverse of :func:`pack_slided`: scatter window values back to the
+    original K.  Algorithm 2 puts each source non-zero in exactly one
+    window slot, so adding the windows back into source coordinates (a
+    slice-add into zeros of the source width) rebuilds the weights
+    exactly, in any dtype."""
+    l, n, s, nw = dec.source.l, dec.hw.n, dec.hw.stride, dec.num_windows
+    wv = slided_window_view(ws, dec)  # [..., g, w, n]
+    lead, g = tuple(wv.shape[:-3]), wv.shape[-3]
+    out = torch.zeros(lead + (g, l), dtype=wv.dtype, device=wv.device)
+    for j in range(nw):
+        out[..., s * j:s * j + n] += wv[..., j, :]
+    return out.reshape(lead + (g * l,))
+
+
+def _nonzero(a) -> np.ndarray:
+    """``a != 0`` on the host, for a tensor (any dtype, any device) or an
+    array."""
+    if isinstance(a, torch.Tensor):
+        return (a != 0).cpu().numpy()
+    return np.asarray(a) != 0
+
+
+def is_hw_compliant(ws, dec: SlideDecomposition) -> bool:
+    """Check every aligned N-window of a slided tensor (or array) has
+    <= M non-zeros."""
+    win = _nonzero(ws).reshape(-1, dec.hw.n)
+    return bool((win.sum(axis=-1) <= dec.hw.m).all())
 
 
 def pack_nibbles(v: torch.Tensor) -> torch.Tensor:
@@ -110,3 +164,10 @@ def prune_to_pattern(w: torch.Tensor, pattern: Pattern) -> torch.Tensor:
     """Magnitude-prune to Z:L: zero the (L-Z) smallest-|.| per L-group."""
     return torch.where(magnitude_keep_mask(w, pattern), w,
                        torch.zeros((), dtype=w.dtype, device=w.device))
+
+
+def pattern_violations(w, pattern: Pattern) -> int:
+    """Number of L-groups violating the Z:L budget (0 == compliant), of a
+    tensor or an array."""
+    grp = _nonzero(w).reshape(-1, pattern.l)
+    return int((grp.sum(axis=-1) > pattern.z).sum())

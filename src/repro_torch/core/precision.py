@@ -59,6 +59,15 @@ class PrecisionRecipe:
     def packed_weights(self) -> bool:
         return self.weight == "w4"
 
+    @property
+    def act_dtype(self) -> torch.dtype:
+        return {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[self.act]
+
+    @property
+    def acc_dtype(self) -> torch.dtype:
+        """int32 for all-integer operands, else fp32 (fp8 dots are cast)."""
+        return torch.int32 if self.act == "int8" else torch.float32
+
     def out_dtype(self, x_dtype: torch.dtype) -> torch.dtype:
         return getattr(torch, self.out) if self.out is not None else x_dtype
 

@@ -59,6 +59,10 @@ def quantize_fp8(x: torch.Tensor,
     return Quantized(q, scale)
 
 
+def dequantize(qx: Quantized, dtype=torch.float32) -> torch.Tensor:
+    return (qx.q.to(torch.float32) * qx.scale).to(dtype)
+
+
 def quantize_weight_int8_rowwise(w: torch.Tensor) -> Quantized:
     """Per-output-channel symmetric int8: w [out, K] -> scale [out, 1].
     Zeros stay zero, so quantization commutes with the pattern and Phi."""
@@ -96,3 +100,6 @@ def matmul_dequant(qx: Quantized, qw: Quantized,
     acc = acc.reshape(tuple(qx.q.shape[:-1]) + (qw.q.shape[0],))
     y = acc.to(torch.float32) * qx.scale * qw.scale.squeeze(-1)
     return y.to(out_dtype)
+
+
+int8_matmul_dequant = matmul_dequant  # legacy name of the int8 instance

@@ -4,7 +4,12 @@
 lifting Psi, §3.3) replicates input elements by window coverage — pure
 index remapping — so that ``w^T x == Phi(w)^T Psi(x)`` (paper Eq. 3).
 ``slided_matmul`` is the paper's GPU semantics in plain torch: lifted
-activations against slided weights over the gamma*K contraction.
+activations against slided weights over the gamma*K contraction;
+``unslid_matmul`` scatters the windows back to the original K first (the
+same product over K, 1.0x dense FLOPs), and ``dense_matmul`` is the
+baseline ``x @ W^T``.  All three are plain full-fp32 products (TF32 is
+off for the process, ``repro_torch/__init__``), as JAX's run at
+``Precision.HIGHEST`` outside any kernel.
 """
 from __future__ import annotations
 
@@ -54,8 +59,21 @@ def slided_matmul(x: torch.Tensor, w_slided: torch.Tensor,
     """Paper-faithful execution y = Psi(x) @ Phi(W)^T.  x: [..., K];
     w_slided: [M, gamma*K] (from ``phi``); returns [..., M] in the promoted
     dtype of the two, as ``jnp.einsum`` does."""
-    dt = torch.promote_types(x.dtype, w_slided.dtype)
-    return lift(x, dec).to(dt) @ w_slided.to(dt).T
+    return dense_matmul(lift(x, dec), w_slided)
+
+
+def unslid_matmul(x: torch.Tensor, w_slided: torch.Tensor,
+                  dec: SlideDecomposition) -> torch.Tensor:
+    """y = x @ unslide(Phi(W))^T: the windows scattered back to the
+    original K, then a dense product (identical output: the packer is
+    lossless).  Returns [..., M] in the promoted dtype."""
+    return dense_matmul(x, packer.unslide(w_slided, dec))
+
+
+def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Baseline y = x @ W^T with W [M, K], in the promoted dtype."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt).T
 
 
 def decomposition_for(pattern: Pattern) -> SlideDecomposition:

@@ -269,6 +269,23 @@ def slided_matmul_quant(x: torch.Tensor, sp_values: torch.Tensor,
     return y.reshape(lead + (y.shape[-1],))
 
 
+def slided_matmul_int8(x: torch.Tensor, w_slided_q: torch.Tensor,
+                       s_w: torch.Tensor, dec: SlideDecomposition,
+                       out_dtype=None, bias: torch.Tensor | None = None,
+                       activation: str | None = None,
+                       tune: bool = False) -> torch.Tensor:
+    """The int8 instance of :func:`slided_matmul_quant` under JAX's legacy
+    name, given Phi(q_W) as JAX's takes it: the dense int8 [M, gamma*K]
+    matrix.  It is packed into B3's 2:4 operand
+    (``fused_slide_matmul.sparse_operand``, M padded to 16 rows and
+    gamma*K to 64 columns) for M = ``s_w.shape[0]``: a CUDA tensor
+    launches B3, a CPU one runs its plain version."""
+    sp_values, sp_meta = _fsm.sparse_operand(w_slided_q)
+    return slided_matmul_quant(x, sp_values, sp_meta, s_w, dec, "int8",
+                               out_dtype, bias=bias, activation=activation,
+                               tune=tune)
+
+
 def _flat_absmax(act_absmax: torch.Tensor | None) -> torch.Tensor | None:
     """[..., 1] per-token absmax -> [rows, 1], row-aligned with x2."""
     if act_absmax is None:

@@ -64,6 +64,15 @@ def compressed_matmul_quant(x: torch.Tensor, c: comp.CompressedSlided,
                                      out_dtype or x.dtype, bias, activation)
 
 
+def compressed_matmul_int8(x: torch.Tensor, c: comp.CompressedSlided,
+                           s_w: torch.Tensor, out_dtype=None, bias=None,
+                           activation: str | None = None) -> torch.Tensor:
+    """The int8 instance of :func:`compressed_matmul_quant` (w8a8), JAX's
+    legacy name."""
+    return compressed_matmul_quant(x, c, s_w, "int8", out_dtype, bias=bias,
+                                   activation=activation)
+
+
 def compressed_matmul_dequant(q_x: torch.Tensor, s_x: torch.Tensor,
                               c: comp.CompressedSlided, s_w: torch.Tensor,
                               out_dtype, bias=None,
@@ -165,6 +174,15 @@ def slided_matmul_quant(x: torch.Tensor, w_slided_q: torch.Tensor,
     return slided_matmul_dequant(q_lift, s_x, w_slided_q, s_w,
                                  out_dtype or x.dtype, bias, activation,
                                  packed=rec.packed_weights)
+
+
+def slided_matmul_int8(x: torch.Tensor, w_slided_q: torch.Tensor,
+                       s_w: torch.Tensor, dec, out_dtype=None, bias=None,
+                       activation: str | None = None) -> torch.Tensor:
+    """The int8 instance of :func:`slided_matmul_quant`, JAX's legacy
+    name."""
+    return slided_matmul_quant(x, w_slided_q, s_w, dec, "int8", out_dtype,
+                               bias=bias, activation=activation)
 
 
 def slided_matmul_sparse(x: torch.Tensor, sp_values: torch.Tensor,
