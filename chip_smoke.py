@@ -171,15 +171,23 @@ Phases (any failed check exits nonzero):
    layers, masked 6:8, bf16, int8 AdamW moments, 8 x 256 tokens, three
    steps; the gradients of a batch with -1 labels); then four gloo ranks
    sharing the card (``mesh_rank``): (a) ``train(mesh=...)`` over (data
-   2, model 2), the same three steps checkpointed (losses within
-   MESH_LOSS_RTOL, params within MESH_PARAM_RL2), each rank's resident
-   bytes of params + AdamW state against the logical total, seconds and
+   2, model 2), its compute split along model at t = 2 (Megatron column-
+   and row-parallel linears, the vocab-parallel cross entropy), the same
+   three steps checkpointed (losses within MESH_LOSS_RTOL, params within
+   MESH_PARAM_RL2), each rank's resident bytes of params + AdamW state
+   against the logical total, its ``max_memory_allocated``, seconds and
    collectives a step, and the sharded step's gradients on the -1 batch
-   within MESH_GRAD_RL2 beside two planted faults that must exceed it
-   (one rank skips the data-parallel gradient sum; the loss is the mean
-   of the local means); (b) ``gpipe_apply`` over (stage 4), one danube
-   block a stage at fp32, 4 microbatches of 2 x 256, output and every
-   stage's gradients against the sequential run; (c)
+   within MESH_GRAD_RL2, its FLOPs a rank (``launch.op_cost``) beside
+   one device's, and four planted faults that must exceed it (one rank
+   skips the data-parallel gradient sum; the loss is the mean of the
+   local means; ``tp.copy_in``'s backward skips its all-reduce; a
+   logsumexp over the rank's vocab slice only); (e) the same step with
+   ``sequence_parallel`` on, within the gates of the step with it off
+   and of the single device, and over (data 1, model 4) at t = 4 (2 KV
+   heads a rank), within the single device's gates; (b)
+   ``gpipe_apply`` over (stage 4), one danube block a stage at fp32, 4
+   microbatches of 2 x 256, output and every stage's gradients against
+   the sequential run; (c)
    ``compressed_crosspod_mean`` of a [10240, 3840] leaf over (pod 2,
    data 2), bit-equal to the local recomputation, its int8 bytes on the
    wire; B1-B5 launch no time; then (d) two ranks restore (a)'s
@@ -205,7 +213,8 @@ Phases (any failed check exits nonzero):
    configuration's peak within DRY_PEAK_RTOL of phase 10's measured
    ``max_memory_allocated``, phase 12's on a dry (data 2, model 2) mesh
    equal to phase 12's ranks' resident bytes, collectives and their
-   bytes, rank for rank, and h2o-danube-3-4b train_4k on 16x16; the
+   bytes, rank for rank, and h2o-danube-3-4b train_4k on 16x16 (its
+   compute split at t = 8) beside the storage-only step's figures; the
    phase within PHASE13_S seconds;
 14. the library API and the examples (ROADMAP A.1, A.2): (a)
    ``launch.quickstart.run`` on the card (w [512, 1024], x [64, 1024],
@@ -3787,9 +3796,22 @@ def phase_tp(torch, card, ref, timer):
 # (a) h2o-danube-3-4b at full width, depth cut to MESH_LAYERS, STE-masked
 # 6:8, bf16, AdamW with int8 moments (a 2.2 GB checkpoint for (d), not
 # the 5.6 GB fp32 moments would make), the launcher's 8 x 256 tokens,
-# MESH_STEPS steps, over (data 2, model 2): four gloo ranks on the card
+# MESH_STEPS steps, over (data 2, model 2): four gloo ranks on the card.
+# The step splits its compute along model (t = 2: 16 heads, 4 KV heads,
+# half of d_ff and of the vocab a rank); (e) one direct step over (data
+# 1, model 4), t = 4 (2 KV heads a rank), and one with
+# sequence_parallel on beside the same step with it off
 MESH_LAYERS, MESH_STEPS, MESH_LR = 2, 3, 3e-3
-MESH_RANKS, MESH_SHAPE = 4, (2, 2)
+MESH_RANKS, MESH_SHAPE, MESH_TP4 = 4, (2, 2), (1, 4)
+# the faults each direct step is read beside: one rank skips the
+# data-parallel gradient sum; the loss a mean of the local means;
+# copy_in's backward without its all-reduce; a logsumexp over the rank's
+# own vocab slice
+MESH_FAULTS = ("skip_dp_sum", "mean_of_means", "copy_in_no_sum",
+               "local_lse")
+# (a)'s readings when every rank gathered each leaf whole and computed
+# its data slice unsplit (H100 80GB HBM3, 700.00 W)
+MESH_STORAGE_ONLY = {"collectives": "85-87", "step_s": (5.108, 7.302)}
 MESH_WARM = 100                # the direct step's counter: rate scale 1
 # (a) gates, sharded vs single device in bf16: a sound step differs by
 # the rounding of half-batch bf16 gradients summed in fp32, a planted
@@ -3845,6 +3867,7 @@ def _mesh_reference(torch, setup, root):
     MESH_STEPS steps from seed 0, and the -1 batch's loss and gradients
     at the seed-0 init.  Saved for rank 0 to compare with."""
     from repro_torch import tree
+    from repro_torch.launch import op_cost
     from repro_torch.models import model as M
     from repro_torch.runtime import steps, train_loop
     cfg, b, s, _ = _mesh_setup(setup)
@@ -3858,14 +3881,19 @@ def _mesh_reference(torch, setup, root):
     del run
     params = M.init(cfg, torch.Generator(device=dev).manual_seed(0))
     leaves = steps.trainable(params)
-    loss = M.loss_fn(params, cfg, _minus_one_batch(torch, cfg, b, s, dev))
-    ref["grads"] = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+    with op_cost.OpCounter() as counter:
+        loss = M.loss_fn(params, cfg, _minus_one_batch(torch, cfg, b, s,
+                                                         dev))
+        grads = torch.autograd.grad(loss, leaves)
+    ref["grads"] = [g.cpu() for g in grads]
     ref["loss_m1"] = float(loss.detach())
+    ref["flops"] = counter.counts["flops"]
     torch.save(ref, f"{root}/ref.pt")
     log(f"(a) single device, {MESH_STEPS} steps: losses "
         f"{[round(x, 5) for x in ref['losses']]}, step s "
         f"{[round(x, 3) for x in ref['step_s']]}; the -1 batch's loss "
-        f"{ref['loss_m1']:.5f}; {time.time() - t0:.1f} s")
+        f"{ref['loss_m1']:.5f}, its loss + gradients "
+        f"{ref['flops']:.4e} FLOPs (op_cost); {time.time() - t0:.1f} s")
 
 
 def _replica(mesh, spec) -> float:
@@ -3920,16 +3948,39 @@ def _fingerprints(torch, pieces, specs, mesh):
     return [int(v) % FP_PRIME for v in tot.tolist()]
 
 
-def _mesh_direct(torch, cfg, mesh, params, lay, batch, ref, fault):
+def _pieces_rl2(torch, a, b, specs, mesh):
+    """The worst leaf's relative L2 between two sets of this rank's
+    pieces of the same layout (one replica of each piece counting)."""
+    sums = []
+    for x, y, sp in zip(a, b, specs):
+        x, y = x.to(torch.float64), y.to(torch.float64)
+        sums.append(torch.stack([((x - y) ** 2).sum(), (y * y).sum()])
+                    * _replica(mesh, sp))
+    tot = mesh.all_reduce(torch.stack(sums), mesh.axis_names, "sum")
+    return float((tot[:, 0] / tot[:, 1].clamp_min(1e-300)).sqrt().max())
+
+
+def _mesh_direct(torch, cfg, mesh, params, lay, batch, ref, fault,
+                 keep=False, count=False):
     """One sharded step's loss and gradients on the -1 batch, sound or
-    under a planted fault: one rank skips the data-parallel gradient sum
-    (its collectives still run), or the loss is the mean of the local
-    means.  Read against the single device's on every rank (the
-    gradients' sums all-reduced, no gather)."""
+    under a planted fault (MESH_FAULTS): one rank skips the data-parallel
+    gradient sum (its collectives still run); the loss is the mean of the
+    local means; ``tp.copy_in``'s backward skips its all-reduce; the
+    cross entropy takes a logsumexp over the rank's vocab slice only.
+    Read against the single device's on every rank (the gradients' sums
+    all-reduced, no gather); ``keep`` returns the gradient pieces too,
+    ``count`` the step's FLOPs (``launch.op_cost``) and collectives."""
+    from repro_torch.launch import op_cost
+    from repro_torch.models import transformer
     from repro_torch.runtime import steps
-    from repro_torch.sharding import rules
+    from repro_torch.sharding import ctx, rules, tp
     orig_rg, orig_w = steps.reduce_grad, steps.loss_weight
-    if fault == "skip_dp_sum":
+    orig_copy, orig_lse = tp._CopyIn.backward, transformer._vocab_lse
+    if fault == "copy_in_no_sum":
+        tp._CopyIn.backward = staticmethod(lambda c, g: (g, None))
+    elif fault == "local_lse":
+        transformer._vocab_lse = lambda x: torch.logsumexp(x, dim=-1)
+    elif fault == "skip_dp_sum":
         def faulty(g, spec, m):
             out = orig_rg(g, spec, m)
             if m.rank == 1:
@@ -3939,22 +3990,40 @@ def _mesh_direct(torch, cfg, mesh, params, lay, batch, ref, fault):
     elif fault == "mean_of_means":
         steps.loss_weight = lambda count, total: torch.tensor(
             1.0 / mesh.axis_size("data"), device=mesh.device)
+    counter = op_cost.OpCounter()
     try:
         local = {k: rules.cut(v, rules.batch_spec(v, mesh), mesh)
                  for k, v in batch.items()}
-        loss, grads = steps.sharded_grads(cfg, params, local, lay)
+        n0 = ctx.collective_count()
+        if count:
+            with counter:
+                loss, grads = steps.sharded_grads(cfg, params, local, lay)
+        else:
+            loss, grads = steps.sharded_grads(cfg, params, local, lay)
+        n1 = ctx.collective_count()
     finally:
         steps.reduce_grad, steps.loss_weight = orig_rg, orig_w
-    return {"loss_rel": abs(float(loss) - ref["loss_m1"]) / abs(
-        ref["loss_m1"]), "grad_rl2": _mesh_rl2(torch, grads, lay.params,
-                                               mesh, ref["grads"])}
+        tp._CopyIn.backward = staticmethod(orig_copy)
+        transformer._vocab_lse = orig_lse
+    out = {"loss": float(loss), "loss_rel": abs(float(loss) - ref["loss_m1"])
+           / abs(ref["loss_m1"]), "grad_rl2": _mesh_rl2(
+               torch, grads, lay.params, mesh, ref["grads"]),
+           "t": steps.split_degree(cfg, mesh), "collectives": n1 - n0}
+    if count:
+        out["flops"] = counter.counts["flops"]
+    if keep:
+        out["grads"] = [g.detach() for g in grads]
+    return out
 
 
 def _mesh_train(torch, setup, root, dev):
     """(a) ``train(mesh=...)`` over (data 2, model 2) beside the single
-    device's run; the direct step on the -1 batch and its two planted
-    faults.  Every rank returns the readings (all-reduced) and its own
-    bytes."""
+    device's run; the direct step on the -1 batch and its four planted
+    faults; (e) the direct step with sequence parallelism, and over (data
+    1, model 4).  Every rank returns the readings (all-reduced) and its
+    own bytes, peak memory and FLOPs."""
+    import dataclasses
+    import gc
     import math
     from repro_torch import tree
     from repro_torch.models import model as M
@@ -3993,14 +4062,47 @@ def _mesh_train(torch, setup, root, dev):
     out["param_rl2"] = _mesh_rl2(torch, tree.leaves(run["params"]),
                                  lay.params, mesh, ref["params"])
     out["ref_losses"], out["ref_step_s"] = ref["losses"], ref["step_s"]
+    out["ref_flops"] = ref["flops"]
     del run, state
+    if dev.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     params0 = M.init(cfg, torch.Generator(device=dev).manual_seed(0))
     params, _, lay0 = train_loop._sharded_init(params0, _mesh_opt(), mesh)
     del params0
     batch = _minus_one_batch(torch, cfg, b, s, dev)
-    out["direct"] = {f or "sound": _mesh_direct(torch, cfg, mesh, params,
-                                                lay0, batch, ref, f)
-                     for f in (None, "skip_dp_sum", "mean_of_means")}
+    sound = _mesh_direct(torch, cfg, mesh, params, lay0, batch, ref, None,
+                         keep=True, count=True)
+    out["direct"] = {"sound": sound}
+    out["direct"].update({f: _mesh_direct(torch, cfg, mesh, params, lay0,
+                                          batch, ref, f)
+                          for f in MESH_FAULTS})
+    # (e) sequence parallelism on, against the same step with it off
+    spd = _mesh_direct(torch, dataclasses.replace(cfg, sequence_parallel=True),
+                       mesh, params, lay0, batch, ref, None, keep=True)
+    spd["vs_off_grad_rl2"] = _pieces_rl2(torch, spd.pop("grads"),
+                                         sound.pop("grads"), lay0.params,
+                                         mesh)
+    spd["vs_off_loss_rel"] = abs(spd["loss"] - sound["loss"]) / abs(
+        sound["loss"])
+    out["sp"] = spd
+    del params, lay0
+    # (e) (data 1, model 4): the split at t = 4 over the same four ranks
+    gc.collect()
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    mesh4 = ctx.Mesh(MESH_TP4, ("data", "model"), device=dev)
+    params0 = M.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    p4, _, lay4 = train_loop._sharded_init(params0, _mesh_opt(), mesh4)
+    del params0
+    out["tp4"] = _mesh_direct(torch, cfg, mesh4, p4, lay4, batch, ref, None,
+                              count=True)
+    if dev.type == "cuda":
+        out["peak_gb_end"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"rank {mesh.rank}: max_memory_allocated "
+        f"{out.get('peak_gb', 0):.3f} GB after (a)'s train, "
+        f"{out.get('peak_gb_end', 0):.3f} GB by the end of (e); FLOPs of "
+        f"one split step (op_cost) {sound['flops']:.4e} at t = "
+        f"{sound['t']}, {out['tp4']['flops']:.4e} at t = "
+        f"{out['tp4']['t']}")
     return out
 
 
@@ -4141,7 +4243,7 @@ def mesh_rank(root: str, setup_json: str) -> int:
     a = out["train"]
     loss_rel = max(abs(x - y) / abs(y) for x, y in
                    zip(a["losses"], a["ref_losses"]))
-    d = a["direct"]
+    d, e, e4 = a["direct"], a["sp"], a["tp4"]
     log(f"(a) train(mesh=(data 2, model 2)) vs single device: losses "
         f"{[round(x, 5) for x in a['losses']]} vs "
         f"{[round(x, 5) for x in a['ref_losses']]} (worst relative "
@@ -4150,11 +4252,24 @@ def mesh_rank(root: str, setup_json: str) -> int:
         f"{MESH_PARAM_RL2}); the -1 batch's step: loss relative "
         f"{d['sound']['loss_rel']:.3g}, gradients worst leaf "
         f"{d['sound']['grad_rl2']:.3g} (gate {MESH_GRAD_RL2}); planted "
-        f"faults, gradients / loss: skip the data-parallel sum "
-        f"{d['skip_dp_sum']['grad_rl2']:.3g} / "
-        f"{d['skip_dp_sum']['loss_rel']:.3g}, mean of local means "
-        f"{d['mean_of_means']['grad_rl2']:.3g} / "
-        f"{d['mean_of_means']['loss_rel']:.3g}")
+        f"faults, gradients / loss: "
+        + ", ".join(f"{f} {d[f]['grad_rl2']:.3g} / {d[f]['loss_rel']:.3g}"
+                    for f in MESH_FAULTS))
+    log(f"(a) the split: t = {d['sound']['t']}, {d['sound']['collectives']} "
+        f"collectives in the direct step; FLOPs a rank "
+        f"{d['sound']['flops']:.4e} against one device's "
+        f"{a['ref_flops']:.4e} ({d['sound']['flops'] / a['ref_flops']:.4f}"
+        f"); collectives a train step {a['collectives']} (storage "
+        f"only: {MESH_STORAGE_ONLY['collectives']}), step s "
+        f"{[round(x, 3) for x in a['step_s']]} (storage only: "
+        f"{MESH_STORAGE_ONLY['step_s']})")
+    log(f"(e) sequence parallelism on vs off: loss relative "
+        f"{e['vs_off_loss_rel']:.3g}, gradients worst leaf "
+        f"{e['vs_off_grad_rl2']:.3g}; vs one device {e['loss_rel']:.3g} / "
+        f"{e['grad_rl2']:.3g}; {e['collectives']} collectives.  (data 1, "
+        f"model 4), t = {e4['t']}: vs one device {e4['loss_rel']:.3g} / "
+        f"{e4['grad_rl2']:.3g}, FLOPs a rank {e4['flops']:.4e}, "
+        f"{e4['collectives']} collectives")
     assert loss_rel <= MESH_LOSS_RTOL, (a["losses"], a["ref_losses"])
     assert a["param_rl2"] <= MESH_PARAM_RL2, a["param_rl2"]
     assert d["sound"]["loss_rel"] <= MESH_LOSS_RTOL, d["sound"]
@@ -4162,8 +4277,15 @@ def mesh_rank(root: str, setup_json: str) -> int:
     # each planted fault must fail the comparison (its gradients; the
     # mean of means moves the loss too, but near init every row's loss is
     # near ln V, so that reading alone would be weak)
-    assert d["skip_dp_sum"]["grad_rl2"] > MESH_GRAD_RL2, d
-    assert d["mean_of_means"]["grad_rl2"] > MESH_GRAD_RL2, d
+    for f in MESH_FAULTS:
+        assert d[f]["grad_rl2"] > MESH_GRAD_RL2, (f, d[f])
+    assert d["sound"]["t"] == 2, d["sound"]
+    assert e4["t"] == (2 if setup.get("smoke") else 4), e4
+    for run in (e, e4):
+        assert run["loss_rel"] <= MESH_LOSS_RTOL, run
+        assert run["grad_rl2"] <= MESH_GRAD_RL2, run
+    assert e["vs_off_loss_rel"] <= MESH_LOSS_RTOL, e
+    assert e["vs_off_grad_rl2"] <= MESH_GRAD_RL2, e
     with open(f"{root}/mesh.json", "w") as f:
         json.dump(out, f)
     return 0
@@ -4278,16 +4400,20 @@ def phase_mesh(torch, card, setup=None):
 def report_mesh(mesh, card):
     a, b, c = mesh["train"], mesh["gpipe"], mesh["compression"]
     d = a["direct"]
-    log(f"multi-device training (phase 12): rank 0 holds "
+    log(f"multi-device training (phase 12): the split at t = "
+        f"{d['sound']['t']} (data 1, model 4: t = {a['tp4']['t']}), FLOPs "
+        f"a rank {d['sound']['flops'] / a['ref_flops']:.4f} of one "
+        f"device's; rank 0 holds "
         f"{a['resident'] / 1e9:.4f} GB of params + AdamW state of the "
-        f"logical {a['logical'] / 1e9:.4f} GB; step s "
+        f"logical {a['logical'] / 1e9:.4f} GB, peaks at "
+        f"{a.get('peak_gb', 0):.3f} GB; step s "
         f"{[round(x, 3) for x in a['step_s']]} (single device "
         f"{[round(x, 3) for x in a['ref_step_s']]}); collectives a step "
         f"{a['collectives']}, GB handed to them "
         f"{[round(x / 1e9, 4) for x in a['wire']]}; gradients vs one device "
         f"{d['sound']['grad_rl2']:.3g}, faults "
-        f"{d['skip_dp_sum']['grad_rl2']:.3g} / "
-        f"{d['mean_of_means']['grad_rl2']:.3g}; GPipe fwd + bwd "
+        + " / ".join(f"{d[f]['grad_rl2']:.3g}" for f in MESH_FAULTS)
+        + f"; SP on vs off {a['sp']['vs_off_grad_rl2']:.3g}; GPipe fwd + bwd "
         f"{b['seconds']:.3f} s; int8 cross-pod bytes {c['wire_bytes']} "
         f"in {c['seconds']:.3f} s; phase 12 {mesh['seconds']:.1f} s ({card})")
 
@@ -4297,6 +4423,9 @@ TUNE_RS = (4, PREFILL_CHUNK)   # the decode step's rows and a prefill chunk
 DRY_PEAK_RTOL = 0.2            # the dry run's peak vs phase 10's measured
 DRY_TIMEOUT = 600
 PHASE13_S = 90                 # the phase's budget on the card
+# danube train_4k on 16x16 as rank 0 before the split (the dry run when
+# every rank gathered each leaf whole)
+DRY_STORAGE_ONLY = {"flops": 2.773e15, "peak_gb": 126.012}
 # the tuner's cache file, read back in a child process
 READ_TILES = ("import dataclasses, json, sys; "
               "from repro_torch.kernels import autotune; "
@@ -4652,7 +4781,10 @@ def phase_tuning(torch, card, want, training, mesh):
             f"FLOPs a rank {prod['flops_per_rank']:.4e} = "
             f"{prod['flops_per_rank'] / (glob / prod['chips']):.3f} x the "
             f"model's 6ND / chips, collectives {prod['collective_count']}, "
-            f"dominant term {prod['roofline']['dominant']}")
+            f"dominant term {prod['roofline']['dominant']}; split at t = "
+            f"{prod.get('tp')} with {prod.get('replicas')} replicas; "
+            f"before the split {DRY_STORAGE_ONLY['flops']:.4e} FLOPs, "
+            f"{DRY_STORAGE_ONLY['peak_gb']:.3f} GB peak")
     finally:
         for proc in dry.values():
             if proc.poll() is None:

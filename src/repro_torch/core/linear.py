@@ -124,9 +124,13 @@ def apply(params: dict[str, Any], x: torch.Tensor, cfg: SparsityConfig,
     elementwise op on the others — identical semantics
     (``kernels.ref.epilogue``).
 
-    ``reduce_out`` marks the projection row-parallel under tensor-parallel
-    serving (DESIGN.md §9): the rank's partial output, taken after the
-    epilogue, is all-reduced over the ranks.  ``activation`` is refused
+    ``reduce_out`` marks the projection row-parallel under tensor
+    parallelism (DESIGN.md §9; serving, and the split train step): the
+    rank's partial output, taken after the epilogue, is summed over the
+    ranks (``tp.reduce``: in training an autograd all-reduce whose
+    backward is the identity, or under sequence parallelism a
+    reduce-scatter along S; the masked path STE-prunes the rank's K-slice,
+    which holds whole L-groups, ``tp.validate``).  ``activation`` is refused
     there (a nonlinearity on partial sums does not commute with the sum),
     and a quantized recipe quantizes with the global per-token absmax
     (``tp.reduce_max``), so every rank emits the unsharded run's quantized

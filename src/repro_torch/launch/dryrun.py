@@ -12,7 +12,9 @@ the step itself, so every figure is counted from what it runs:
 
 * train cells run ``steps.train_step(layout=...)`` over a dry
   ``sharding.ctx.Mesh`` (its collectives return tensors of the real
-  ones' shapes and count as a real mesh counts); prefill and decode
+  ones' shapes and count as a real mesh counts), the step's compute
+  split along ``model`` as a real mesh's is (``steps.split_degree``;
+  ``--seq-par`` sets ``cfg.sequence_parallel``); prefill and decode
   cells run the one-shot ``steps.prefill_step`` / ``serve_step`` on the
   tensor-parallel serving shards (``tp.shard_params``) under a dry
   ``tp`` context, the batch split over ``data`` and ``pod``.  The TP
@@ -204,6 +206,7 @@ def train_step_dry(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                 for x, s in zip(tree.leaves(opt_meta), layout.opt)])
             dp = math.prod(mesh.axis_size(a) for a in steps.dp_axes(mesh))
             local_b = global_batch // dp
+            t = steps.split_degree(cfg, mesh)
         del whole
         batch = {k: torch.zeros((local_b,) + tuple(v.shape[1:]),
                                 dtype=v.dtype, device=device)
@@ -214,8 +217,10 @@ def train_step_dry(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         out = _counted(lambda: steps.train_step(
             cfg, opt_cfg, params, opt_state, batch, accum=accum,
             layout=layout), params, opt_state, batch)
+    extra = {} if sizes is None else {
+        "tp": t, "replicas": mesh.axis_size("model") // t}
     return dict(out, resident_bytes=resident, local_batch=local_b,
-                param_count=n_params)
+                param_count=n_params, **extra)
 
 
 def serve_tp(cfg: ModelConfig, model: int) -> int:
@@ -224,14 +229,7 @@ def serve_tp(cfg: ModelConfig, model: int) -> int:
     decoder)."""
     if cfg.is_encoder_decoder:
         return 1
-    for t in sorted((d for d in range(1, model + 1) if model % d == 0),
-                    reverse=True):
-        try:
-            tp.validate(cfg, t)
-            return t
-        except ValueError:
-            continue
-    return 1
+    return tp.degree(cfg, model)
 
 
 def serve_step_dry(cfg: ModelConfig, shape: shp.ShapeSpec, sizes: dict,
@@ -271,8 +269,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
              opt_state_dtype: str = "int8", verbose: bool = True,
              sparse: tuple[int, int] | None = None,
              precision: str | None = None, kv_int8: bool = False,
-             no_remat2: bool = False, grad_accum: int = 1) -> dict:
+             no_remat2: bool = False, grad_accum: int = 1,
+             seq_par: bool = False) -> dict:
     cfg = registry.get(arch)
+    if seq_par:
+        cfg = dataclasses.replace(cfg, sequence_parallel=True)
     if no_remat2:
         cfg = dataclasses.replace(cfg, remat_2level=False)
     if kv_int8:
@@ -323,6 +324,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     for k in ("tp", "replicas"):
         if k in cell:
             rec[k] = cell[k]
+    if shape.kind == "train":
+        rec["sequence_parallel"] = cfg.sequence_parallel
     if verbose:
         print(f"[dryrun] OK {arch} x {shape_name} x {rec['mesh']} "
               f"({dt:.1f} s): resident {rec['resident_bytes'] / 1e9:.3f} GB,"
@@ -349,6 +352,7 @@ def _cell_path(arch: str, shape_name: str, multi: bool) -> Path:
 
 def _summary(rec: dict) -> dict:
     keys = ("arch", "shape", "mesh", "status", "reason", "tp",
+            "sequence_parallel",
             "resident_bytes", "peak_bytes", "fits", "flops_per_rank",
             "collective_count", "seconds")
     return {k: rec[k] for k in keys if k in rec}
@@ -378,6 +382,10 @@ def main(argv=None):
                     help="int8 KV cache (halves decode cache bytes)")
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="microbatches per optimizer step")
+    ap.add_argument("--seq-par", action="store_true",
+                    help="sequence parallelism (Megatron-SP) in train "
+                         "cells: the residual stream split along S over "
+                         "the model axis' split")
     args = ap.parse_args(argv)
 
     meshes = [True] if args.multi_pod else [False]
@@ -393,7 +401,8 @@ def main(argv=None):
                    "--arch", arch, "--shape", shape_name,
                    "--multi-pod" if multi else "--single-pod",
                    "--opt-state", args.opt_state, "--json",
-                   str(_cell_path(arch, shape_name, multi))]
+                   str(_cell_path(arch, shape_name, multi))] + \
+                (["--seq-par"] if args.seq_par else [])
             while len(running) >= max(1, args.jobs):
                 running = _reap(running, failed)
             print("[dryrun] launch:", " ".join(cmd[3:]), flush=True)
@@ -416,7 +425,8 @@ def main(argv=None):
                    opt_state_dtype=args.opt_state,
                    sparse=tuple(args.sparse) if args.sparse else None,
                    precision=args.precision, kv_int8=args.kv_int8,
-                   no_remat2=args.no_remat2, grad_accum=args.grad_accum)
+                   no_remat2=args.no_remat2, grad_accum=args.grad_accum,
+                   seq_par=args.seq_par)
     path = Path(args.json) if args.json else _cell_path(
         args.arch, args.shape, meshes[-1])
     path.parent.mkdir(parents=True, exist_ok=True)

@@ -24,6 +24,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import linear as sl, quant
 from repro_torch.core.linear import SparsityConfig
+from repro_torch.sharding import tp
 from . import layers
 
 NEG_INF = -1e30
@@ -193,7 +194,12 @@ def apply(params, spec: AttnSpec, x, positions, sp_cfg: SparsityConfig,
     (uniform write position, batched decode), at a device index as JAX's
     ``dynamic_update_slice``; the cache is updated in place.  With
     ``cross_kv`` = (k, v) [B, T, KVH, hd] (the encoder's K/V) the queries
-    attend over it non-causally and nothing is written."""
+    attend over it non-causally and nothing is written.
+
+    Under tensor parallelism the heads are this rank's (``spec``): q/k/v
+    are column-parallel, their input entering through ``tp.enter`` (in
+    training its gradient is summed over the ranks; under sequence
+    parallelism the S-shards are gathered), and ``wo`` is row-parallel."""
     b, s, _ = x.shape
     if cross_kv is not None:
         q = _rope(spec, _split_heads(sl.apply(params["wq"], x, sp_cfg),
@@ -204,6 +210,8 @@ def apply(params, spec: AttnSpec, x, positions, sp_cfg: SparsityConfig,
                             q, *cross_kv)
         return sl.apply(params["wo"], out.reshape(b, s, spec.q_dim),
                         sp_cfg), cache
+    x = tp.enter(x)
+    b, s, _ = x.shape
     q, k, v = _qkv(params, spec, x, positions, sp_cfg)
     if cache is None:
         out = _chunked_sdpa(spec, q, k, v)

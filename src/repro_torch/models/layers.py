@@ -8,6 +8,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import linear as sl
 from repro_torch.core.linear import SparsityConfig
+from repro_torch.sharding import tp
 
 
 def rmsnorm_init(d: int, device=None):
@@ -94,8 +95,9 @@ def swiglu(params, x: torch.Tensor, cfg: SparsityConfig) -> torch.Tensor:
     """Gate/up/down MLP; with ``cfg.fuse_epilogue`` the SiLU rides the gate
     projection's kernel epilogue instead of a separate pass.  Under tensor
     parallelism gate/up are column-parallel (the SiLU stays on local
-    columns) and down is row-parallel: ``reduce_out`` all-reduces its
-    output."""
+    columns; their input enters through ``tp.enter``) and down is
+    row-parallel: ``reduce_out`` all-reduces its output."""
+    x = tp.enter(x)
     if cfg.fuse_epilogue:
         g = sl.apply(params["w_gate"], x, cfg, activation="silu")
         u = sl.apply(params["w_up"], x, cfg)

@@ -111,7 +111,12 @@ def _top_k(logits: torch.Tensor, k: int):
 
 def apply(params, spec: MoESpec, x: torch.Tensor,
           sp_cfg: SparsityConfig) -> torch.Tensor:
-    """x: [B, S, D] -> [B, S, D]."""
+    """x: [B, S, D] -> [B, S, D].  Under tensor parallelism the expert
+    stacks are this rank's F-slice: x enters through ``tp.enter``, the
+    router's weight through ``tp.replicated`` (its gates scale this
+    rank's partial outputs only), and the combined output is summed over
+    the ranks."""
+    x = tp.enter(x)
     b, s, d = x.shape
     t = b * s
     tg = min(spec.group_size, t)
@@ -123,7 +128,8 @@ def apply(params, spec: MoESpec, x: torch.Tensor,
     xg = x.reshape(g, tg, d)
 
     # router dot in the activation dtype; only the [G, Tg, E] logits go f32
-    logits = (xg @ params["router"]["w"].to(dt).T).to(torch.float32)
+    router = tp.replicated(params["router"])["w"]
+    logits = (xg @ router.to(dt).T).to(torch.float32)
     top_vals, top_idx = _top_k(logits, k)                  # [G, Tg, K]
     gates = torch.softmax(top_vals, dim=-1)
 
@@ -182,8 +188,8 @@ def apply(params, spec: MoESpec, x: torch.Tensor,
     # y is a partial sum; routing, gates and the combine are the same on
     # every rank (the router is replicated), so the one all-reduce rides
     # the combined output, in fp32 as ``linear.apply`` sums its partials
-    y = tp.reduce(y.to(torch.float32)).to(dt) if tp.size() > 1 else y
-    return y.reshape(b, s, d)
+    y = y.reshape(b, s, d)
+    return tp.reduce(y.to(torch.float32)).to(dt) if tp.size() > 1 else y
 
 
 def aux_load_balance_loss(logits: torch.Tensor, top_idx: torch.Tensor,

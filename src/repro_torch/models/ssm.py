@@ -9,7 +9,9 @@ scan itself is plain torch, as the JAX package keeps it outside Pallas.
 Under tensor parallelism the SSD heads shard over the ranks
 (``SSMSpec.shards``): d_inner and the heads are the local shard's, the
 gated norm over d_inner all-reduces its sum of squares (``tp.rmsnorm``)
-and ``wo`` is row-parallel.
+and ``wo`` is row-parallel; the input enters through ``tp.enter``, and
+the replicated wB / wC, whose outputs feed this rank's heads only, sum
+their weight gradients over the ranks (``tp.replicated``).
 """
 from __future__ import annotations
 
@@ -170,6 +172,7 @@ def apply(params, spec: SSMSpec, x: torch.Tensor, sp_cfg: SparsityConfig,
                                    state nor enter the carried conv window
       cache + chunked=False     -> O(1) single-token decode (S == 1)
     Returns (out, new_cache); the caller stores the new cache."""
+    x = tp.enter(x)
     bsz, s, _ = x.shape
     h, p = spec.num_heads, spec.head_dim
 
@@ -186,8 +189,10 @@ def apply(params, spec: SSMSpec, x: torch.Tensor, sp_cfg: SparsityConfig,
     conv_state = cache["conv"] if cache is not None else None
     xi, new_conv = _causal_conv(xi, params["conv_w"], conv_state,
                                 valid_len=valid_len)
-    b_mat = sl.apply(params["wB"], x, sp_cfg).to(torch.float32)
-    c_mat = sl.apply(params["wC"], x, sp_cfg).to(torch.float32)
+    b_mat = sl.apply(tp.replicated(params["wB"]), x, sp_cfg).to(
+        torch.float32)
+    c_mat = sl.apply(tp.replicated(params["wC"]), x, sp_cfg).to(
+        torch.float32)
 
     xh = xi.reshape(bsz, s, h, p).to(torch.float32)
     if cache is None or chunked:

@@ -21,6 +21,15 @@ Training (:func:`lm_loss`) runs the same units with autograd on:
 remat scan), and :func:`chunked_xent` computes the LM head and the loss
 one checkpointed sequence chunk at a time.  The serving entry points
 below keep ``torch.no_grad``.
+
+Under a tensor-parallel context (``sharding.tp``; the sharded train step
+of ``runtime.steps`` activates one over the mesh's ``model`` axis) a
+training step computes this rank's share: its heads, its F-slice, its
+vocab slice of the LM head, with the autograd collectives of ``tp``.
+The cross entropy is then vocab-parallel (:func:`_vocab_lse`,
+:func:`_vocab_pick`), and with ``cfg.sequence_parallel`` the residual
+stream between the collectives is split along S (Megatron-SP, JAX's
+``_sp``; :func:`lm_loss`).
 """
 from __future__ import annotations
 
@@ -92,7 +101,9 @@ def remat(fn, *args):
     plain call otherwise.  Recomputing changes no value."""
     if not torch.is_grad_enabled():
         return fn(*args)
-    return checkpoint(fn, *args, use_reentrant=False,
+    # the recompute runs in the backward, maybe on autograd's device
+    # thread: it runs under this forward's tensor-parallel context
+    return checkpoint(tp.bind(fn), *args, use_reentrant=False,
                       preserve_rng_state=False)
 
 
@@ -147,9 +158,18 @@ def draw_ssm_wo(params, cfg: ModelConfig, gen: torch.Generator):
     return params
 
 
+def _norm(p, x, eps):
+    """RMSNorm of the residual stream; under sequence parallelism each
+    rank normalizes its S-shard, so its weight's gradient is summed over
+    the ranks (``tp.copy_in``)."""
+    if tp.sp():
+        p = {"g": tp.copy_in(p["g"])}
+    return layers.rmsnorm(p, x, eps)
+
+
 def _ffn(lp, cfg: ModelConfig, xx, is_moe: bool):
     if cfg.d_ff > 0:
-        h = layers.rmsnorm(lp["ffn_norm"], xx, cfg.norm_eps)
+        h = _norm(lp["ffn_norm"], xx, cfg.norm_eps)
         xx = xx + (moe.apply(lp["ffn"], moe_spec(cfg), h, cfg.sparsity)
                    if is_moe else layers.swiglu(lp["ffn"], h, cfg.sparsity))
     return xx
@@ -180,7 +200,7 @@ def _unit(cfg: ModelConfig, unit_params, x, positions):
     for i, (kind, is_moe) in enumerate(zip(cfg.unit_pattern,
                                            cfg.moe_pattern)):
         lp = unit_params[f"layer_{i}"]
-        h = layers.rmsnorm(lp["pre_norm"], x, cfg.norm_eps)
+        h = _norm(lp["pre_norm"], x, cfg.norm_eps)
         if kind == "ssm":
             y, _ = ssm.apply(lp["mixer"], ssm_spec(cfg), h, sp)
         else:
@@ -212,16 +232,41 @@ def backbone(params, cfg: ModelConfig, x, positions):
     else:
         for i in range(s1):
             x = remat(run, x, units[i * s2:(i + 1) * s2])
-    return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _norm(params["final_norm"], x, cfg.norm_eps)
+
+
+def _vocab_lse(logits):
+    """logsumexp over the vocabulary of this rank's logits [..., V/t]
+    (its vocab slice under tensor parallelism): the row maxima, the sums
+    of exponentials and so the result taken over every rank's slice."""
+    if tp.size() == 1:
+        return torch.logsumexp(logits, dim=-1)
+    m = tp.reduce_max(logits.detach().amax(-1))
+    return torch.log(tp.total(torch.exp(logits - m[..., None]).sum(-1))) + m
+
+
+def _vocab_pick(logits, labels):
+    """Each row's logit at its label (0 for a label < 0) from this rank's
+    vocab slice: under tensor parallelism only the rank whose slice holds
+    the label adds it to the sum over the ranks."""
+    lab = torch.clamp_min(labels, 0).long()
+    if tp.size() == 1:
+        return torch.gather(logits, -1, lab[..., None])[..., 0]
+    vloc = logits.shape[-1]
+    lo = tp.rank() * vloc
+    own = (lab >= lo) & (lab < lo + vloc)
+    got = torch.gather(logits, -1,
+                       torch.clamp(lab - lo, 0, vloc - 1)[..., None])[..., 0]
+    return tp.total(torch.where(own, got, torch.zeros((), dtype=got.dtype,
+                                                      device=got.device)))
 
 
 def _chunk_loss(lm_head, cfg: ModelConfig, hc, lc):
     """(summed NLL, valid count) of one sequence chunk; labels < 0 are
     masked out."""
     logits = layers.unembed(lm_head, hc, cfg.sparsity).to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1,
-                          torch.clamp_min(lc, 0).long()[..., None])[..., 0]
+    lse = _vocab_lse(logits)
+    picked = _vocab_pick(logits, lc)
     valid = (lc >= 0).to(torch.float32)
     return ((lse - picked) * valid).sum(), valid.sum()
 
@@ -230,7 +275,11 @@ def chunked_xent(lm_head, cfg: ModelConfig, h, labels):
     """Sequence-chunked LM head + next-token cross entropy: each chunk's
     [B, chunk, V] logits are recomputed in the backward (checkpointed),
     so no full-sequence fp32 logits are ever held.  Returns the mean NLL
-    over labels >= 0, ``total / max(count, 1)``."""
+    over labels >= 0, ``total / max(count, 1)``.  Under tensor
+    parallelism ``h`` enters the column-parallel LM head once (gathered
+    along S under sequence parallelism) and each chunk's loss is
+    vocab-parallel."""
+    h = tp.enter(h)
     _, s, _ = h.shape
     chunk = min(cfg.logits_chunk, s)
     pad = (-s) % chunk
@@ -248,13 +297,21 @@ def chunked_xent(lm_head, cfg: ModelConfig, h, labels):
 
 def lm_loss(params, cfg: ModelConfig, tokens, labels, extra_embeds=None):
     """Next-token cross entropy of a batch (tokens, labels [B, S]) with
-    the sequence-chunked LM head; gradients flow to every float leaf."""
+    the sequence-chunked LM head; gradients flow to every float leaf.
+
+    With ``cfg.sequence_parallel`` under a tensor-parallel context of t
+    ranks, and S a multiple of t, the residual stream is split along S
+    between the units (JAX's ``_sp``): each rank keeps S/t of it, the
+    column-parallel groups gather it and the row-parallel projections
+    reduce-scatter it."""
     x = embed_tokens(params, cfg, tokens, extra_embeds)
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
-    h = backbone(params, cfg, x, positions)
-    return chunked_xent(params["lm_head"], cfg, h, labels)
+    on = getattr(cfg, "sequence_parallel", False) and s % tp.size() == 0
+    with tp.sequence_parallel(on):
+        h = backbone(params, cfg, tp.split_seq(x), positions)
+        return chunked_xent(params["lm_head"], cfg, h, labels)
 
 
 # ------------------------------------------------------------- one-shot

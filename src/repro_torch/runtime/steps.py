@@ -4,22 +4,40 @@
 ``train_step`` given a ``rules.Layout`` runs the sharded step, the port's
 form of JAX's ``jit(train_step, in_shardings=...)`` on a mesh.  Between
 steps each rank holds only its pieces of the parameters and optimizer
-state.  In the step:
-- each parameter piece is gathered whole over the axes its spec names
-  (``_Gather``, whose backward hands the gradient back to the piece);
-- the unchanged single-device ``M.loss_fn`` runs on this rank's
-  ``batch_spec`` slice, weighted by the slice's share of the global count
-  of labels (the ranks' weighted losses sum to the global ``total /
-  count``, where a mean of the local means would not);
-- the backward sums each gradient over the data-parallel axes (``pod``,
-  ``data``) and cuts it to the rank's piece (``reduce_grad``);
+state, laid out by JAX's rules.  The step splits its compute along the
+mesh's ``model`` axis, as GSPMD splits JAX's, Megatron-style: over t
+ranks, t the largest divisor of the axis the config allows
+(:func:`split_degree`: whole heads, KV heads, SSM heads, d_ff and vocab
+slices a rank; the axis' other ranks are replicas that compute the
+same).  In the step:
+- each parameter piece becomes this rank's compute shard (``_Shard``):
+  gathered over the data-parallel axes, and cut to this rank's block of
+  t along the dim its role splits (``tp.shard_dim``: column-parallel
+  leaves on their output, row-parallel on their input, per-head SSM
+  leaves on the heads; replicated leaves whole).  Where the piece is
+  stored split along ``model`` on that dim over all t ranks it is kept
+  as it is; elsewhere (``wo`` and ``w_down``, stored ``out:model``;
+  granite's expert stacks, stored on the expert dim) it is gathered
+  whole and cut;
+- ``M.loss_fn`` runs on this rank's ``batch_spec`` slice under a
+  tensor-parallel context over the t ranks (``tp.activate(mesh=...)``),
+  so each rank computes its heads, F-slices and vocab slice with the
+  autograd collectives of ``sharding.tp``, and with
+  ``cfg.sequence_parallel`` splits the residual stream along S; the
+  loss is weighted by the slice's share of the global count of labels
+  (the ranks' weighted losses sum to the global ``total / count``, where
+  a mean of the local means would not);
+- the backward mirrors the forward: a compute shard's gradient is
+  all-gathered over the t ranks where its piece was gathered whole,
+  then summed over the data-parallel axes (``pod``, ``data``) and cut
+  to the rank's piece (``reduce_grad``);
 - AdamW updates the pieces (``adamw.update`` given the layout).
-The ``model`` axis shards storage only: its ranks gather the same leaves
-and compute the same batch slice, where GSPMD would split the compute
-(ROADMAP C).
+An encoder-decoder runs at t = 1: every rank gathers each leaf whole and
+computes its batch slice (ROADMAP C).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -30,7 +48,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.models import transformer
 from repro_torch.optim import adamw, schedule
-from repro_torch.sharding import rules
+from repro_torch.sharding import rules, tp
 
 
 def trainable(params) -> list[torch.Tensor]:
@@ -81,19 +99,61 @@ def reduce_grad(g: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     return mesh.all_reduce(g, [a for a in dp if a not in done], "sum")
 
 
-class _Gather(torch.autograd.Function):
-    """The whole leaf from this rank's piece; the backward gives the piece
-    its gradient (``reduce_grad``).  Every rank runs the same graph, so
-    the backward collectives run in the same order on every rank."""
+def split_degree(cfg: ModelConfig, mesh) -> int:
+    """t, the ranks of the ``model`` axis a step's compute splits over:
+    its largest divisor that ``tp.validate`` accepts for ``cfg`` (1 for
+    an encoder-decoder, whose mesh step splits no compute)."""
+    if getattr(cfg, "is_encoder_decoder", False):
+        return 1
+    return tp.degree(cfg, mesh.axis_size("model"))
+
+
+def _drop(spec: tuple, dim: int) -> tuple:
+    return tuple(None if d == dim else ax for d, ax in enumerate(spec))
+
+
+class _Shard(torch.autograd.Function):
+    """This rank's compute shard of a leaf from its piece: the whole leaf
+    (``dim`` None), or its block along ``dim`` on ``axis`` (the t ranks
+    of the split), with the piece's ``model`` split kept where it is that
+    block; the backward gives the piece its gradient (``reduce_grad``).
+    Every rank runs the same graph, so the backward collectives run in
+    the same order on every rank."""
 
     @staticmethod
-    def forward(ctx, piece, spec, mesh):
-        ctx.spec, ctx.mesh = spec, mesh
-        return rules.gather_leaf(piece, spec, mesh)
+    def forward(ctx, piece, spec, dim, mesh, axis):
+        ctx.spec, ctx.dim, ctx.mesh, ctx.axis = spec, dim, mesh, axis
+        if dim is None:
+            return rules.gather_leaf(piece, spec, mesh)
+        if _kept(spec, dim, axis):
+            return rules.gather_leaf(piece, _drop(spec, dim), mesh)
+        whole = rules.gather_leaf(piece, spec, mesh)
+        n = whole.shape[dim] // mesh.axis_size(axis)
+        return whole.narrow(dim, mesh.coord(axis) * n, n).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_grad(g, ctx.spec, ctx.mesh), None, None
+        spec, dim, mesh, axis = ctx.spec, ctx.dim, ctx.mesh, ctx.axis
+        if dim is None:
+            return reduce_grad(g, spec, mesh), None, None, None, None
+        if _kept(spec, dim, axis):
+            return (reduce_grad(g, _drop(spec, dim), mesh), None, None,
+                    None, None)
+        whole = mesh.all_gather(g, axis, dim)
+        return reduce_grad(whole, spec, mesh), None, None, None, None
+
+
+def _kept(spec: tuple, dim: int, axis: str) -> bool:
+    """Whether the piece is stored split over all the split's ranks on
+    the split's own dim (the split spans the whole ``model`` axis)."""
+    return axis == "model" and dim < len(spec) and spec[dim] == "model"
+
+
+def shard_dims(params) -> list:
+    """Per leaf (``tree.leaves`` order) the dim its tensor-parallel role
+    splits (``tp.shard_dim``), or None for a replicated leaf."""
+    return [tp.shard_dim(names, len(shape) - stacked)
+            for names, shape, stacked in rules.stacked_leaves(params)]
 
 
 def loss_weight(count, total):
@@ -141,13 +201,20 @@ def sharded_grads(cfg: ModelConfig, params, batch, layout):
     check_moe_groups(cfg, labels.numel(),
                      math.prod(mesh.axis_size(a) for a in dp))
     pieces = trainable(params)
-    whole = [_Gather.apply(p, s, mesh) for p, s in zip(pieces, layout.params)]
+    t = split_degree(cfg, mesh)
+    axis = mesh.split("model", t)
+    dims = shard_dims(params) if t > 1 else [None] * len(pieces)
+    shards = [_Shard.apply(p, s, d, mesh, axis)
+              for p, s, d in zip(pieces, layout.params, dims)]
     count = (labels >= 0).sum().to(torch.float32)
     total = mesh.all_reduce(count, dp, "sum")
-    loss = M.loss_fn(tree.unflatten(params, whole), cfg, batch)
-    weighted = loss * loss_weight(count, total)
-    grads = torch.autograd.grad(weighted, pieces, allow_unused=True,
-                                materialize_grads=True)
+    with contextlib.ExitStack() as stack:
+        if t > 1:
+            stack.enter_context(tp.activate(mesh=mesh, axis=axis))
+        loss = M.loss_fn(tree.unflatten(params, shards), cfg, batch)
+        weighted = loss * loss_weight(count, total)
+        grads = torch.autograd.grad(weighted, pieces, allow_unused=True,
+                                    materialize_grads=True)
     return mesh.all_reduce(weighted.detach(), dp, "sum"), grads
 
 

@@ -14,8 +14,10 @@ each draws the same full init from ``tc.seed`` on its device and keeps
 its pieces by ``sharding.rules`` (as JAX ``device_put``s a replicated
 init onto ``params_shardings``), takes its ``batch_spec`` slice of the
 global batch, and runs the sharded step (``steps.train_step`` given the
-layout).  Checkpoints hold the whole arrays, so a run resumes onto any
-mesh, or onto one device.  Rank 0 logs.
+layout), which splits its compute along the mesh's ``model`` axis
+(``cfg.sequence_parallel`` its one knob).  Checkpoints hold the whole
+arrays, so a run resumes onto any mesh, or onto one device.  Rank 0
+logs.
 """
 from __future__ import annotations
 

@@ -29,6 +29,12 @@ kind with its ring wire cost over its group of n ranks
 reduce-scatter (n-1)/n of its input, all-reduce 2(n-1)/n, a shift the
 tensor once.
 
+``Mesh.split(axis, n)`` names the blocks of ``n`` consecutive
+coordinates of an axis as an axis of their own (the tensor-parallel
+groups of a training step that splits its compute ``n`` ways along
+``model``, the rest of the axis holding replicas): the collectives take
+its name as they take any axis's.
+
 ``use_mesh`` / ``current_mesh`` mark the mesh a step runs over;
 ``constrain`` is the identity (its docstring says why).
 """
@@ -147,6 +153,7 @@ class Mesh:
         self.rank = dist.get_rank()
         self._coords = dict(zip(axis_names, self.device_mesh.get_coordinate()))
         self._groups = {a: self.device_mesh.get_group(a) for a in axis_names}
+        self._sub = {}
 
     @classmethod
     def abstract(cls, sizes: dict, rank: int = 0, dry: bool = False,
@@ -169,22 +176,61 @@ class Mesh:
             r //= self.shape[a]
         self._coords = {a: coords[a] for a in self.axis_names}
         self._groups = None
+        self._sub = {}
         return self
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"
 
     def axis_size(self, axis: str) -> int:
+        if axis in self._sub:
+            return self._sub[axis][0]
         return self.shape.get(axis, 1)
 
     def coord(self, axis: str) -> int:
+        if axis in self._sub:
+            return self._sub[axis][1]
         return self._coords.get(axis, 0)
 
     def group(self, axis: str):
         if self._groups is None:
             raise RuntimeError(f"{self!r} is abstract: it has no process "
                                "groups")
+        if axis in self._sub:
+            return self._sub[axis][2]
         return self._groups[axis]
+
+    def split(self, axis: str, n: int) -> str:
+        """The name of an axis over the blocks of ``n`` consecutive
+        coordinates of ``axis`` (``n`` divides its size): this rank's
+        block, at coordinate ``coord(axis) % n`` in it.  ``axis`` itself
+        when ``n`` is its size.  On a mesh of ranks every rank of the job
+        must call it (the first call of each ``n`` builds the groups of
+        every block, in one order on every rank)."""
+        size = self.axis_size(axis)
+        if size % n:
+            raise ValueError(f"{n} does not divide the {axis!r} axis "
+                             f"({size})")
+        if n == size:
+            return axis
+        name = f"{axis}/{n}"
+        if name not in self._sub:
+            group = None
+            if self._groups is not None:
+                blocks: dict = {}
+                for r in range(math.prod(self.shape.values())):
+                    key, rest = [], r
+                    for a in reversed(self.axis_names):
+                        c = rest % self.shape[a]
+                        rest //= self.shape[a]
+                        key.append(c // n if a == axis else c)
+                    blocks.setdefault(tuple(key), []).append(r)
+                for key in sorted(blocks):
+                    g = dist.new_group(blocks[key])
+                    if self.rank in blocks[key]:
+                        group = g
+            self._sub[name] = (n, self.coord(axis) % n, group)
+        return name
 
     def peer(self, axis: str, coord: int) -> int:
         """The global rank that differs from this one only in having

@@ -37,6 +37,36 @@ runs the same kernels as a single-device engine on its local shapes.
   (the SSM's gated norm over d_inner): the sum of squares is all-reduced.
 * :func:`argmax_tokens`: greedy ids from vocab-sharded logits, the lowest
   global index winning ties, replicated on every rank.
+* :func:`degree`: the split degree of a config over an axis of ``n``
+  ranks, the largest divisor of ``n`` that :func:`validate` accepts.
+
+Training splits its compute the same way (``runtime.steps``, Megatron's
+column- and row-parallel linears), so the collectives are autograd
+functions there:
+
+====================  ==========================  ==========================
+function              forward                     backward
+====================  ==========================  ==========================
+:func:`reduce`        all-reduce (row-parallel)   identity
+:func:`copy_in`       identity                    all-reduce
+:func:`total`         all-reduce                  identity
+rmsnorm's sum         all-reduce                  all-reduce
+:func:`reduce_max`    all-reduce (max)            none (no gradient)
+====================  ==========================  ==========================
+
+:func:`copy_in` marks a replicated tensor where it enters computation
+that differs between the ranks (the input of a column-parallel group,
+a replicated weight such as the router's): each rank's gradient of it
+is a partial sum.  :func:`enter` is the column-parallel group's form of
+it; under sequence parallelism (:func:`sequence_parallel`, Megatron-SP)
+it all-gathers the S-sharded residual stream along S instead, and
+:func:`reduce` reduce-scatters along S in place of the all-reduce.
+``activate(mesh=..., axis=...)`` binds the context to an axis of a
+``sharding.ctx.Mesh``: its collectives then run through the mesh
+(host-staged under gloo, counted and tallied as the mesh's own).  A
+backward can run on another thread than its forward (autograd's device
+threads), so each function keeps its context, and :func:`bind` carries
+the context into a rematerialized forward.
 
 The paged KV pool is allocated per rank at KVH/tp heads and the SSM state
 at d_inner/tp and heads/tp (``models.transformer`` under an active
@@ -82,11 +112,16 @@ _HEAD_SHARDED_LEAVES = {"conv_w", "A_log", "dt_bias", "D"}
 @dataclasses.dataclass(frozen=True)
 class TPContext:
     """The active tensor-parallel context: the process group, its size and
-    this process's rank in it."""
+    this process's rank in it; or a mesh and the axis the ranks lie on;
+    and whether the residual stream is split along S (sequence
+    parallelism)."""
     group: Any = None
     size: int = 1
     rank: int = 0
     dry: bool = False
+    mesh: Any = None
+    axis: str | None = None
+    sp: bool = False
 
 
 def current() -> TPContext | None:
@@ -106,16 +141,65 @@ def rank() -> int:
 
 
 @contextlib.contextmanager
-def activate(group=None):
+def activate(group=None, *, mesh=None, axis: str = "model"):
     """Mark the dynamic extent as one rank's share of a step over
-    ``group`` (default: the default process group)."""
+    ``group`` (default: the default process group), or over the axis
+    ``axis`` of ``mesh`` (a ``sharding.ctx.Mesh``, whose collectives then
+    run the context's)."""
+    if mesh is not None:
+        ctx = TPContext(size=mesh.axis_size(axis), rank=mesh.coord(axis),
+                        dry=mesh.dry, mesh=mesh, axis=axis)
+    else:
+        ctx = TPContext(group=group, size=dist.get_world_size(group),
+                        rank=dist.get_rank(group))
+    with _using(ctx):
+        yield
+
+
+@contextlib.contextmanager
+def _using(ctx):
     prev = current()
-    _STATE.ctx = TPContext(group=group, size=dist.get_world_size(group),
-                           rank=dist.get_rank(group))
+    _STATE.ctx = ctx
     try:
         yield
     finally:
         _STATE.ctx = prev
+
+
+@contextlib.contextmanager
+def sequence_parallel(on: bool = True):
+    """Split the residual stream along S over the ranks in the dynamic
+    extent (Megatron-SP), where ``on`` and a context of more than one
+    rank is active (one bound to a mesh: its collectives split S); else
+    nothing changes."""
+    ctx = current()
+    if not on or ctx is None or ctx.size == 1:
+        yield
+        return
+    if ctx.mesh is None:
+        raise ValueError("sequence parallelism runs over a mesh's axis "
+                         "(activate(mesh=...))")
+    with _using(dataclasses.replace(ctx, sp=True)):
+        yield
+
+
+def sp() -> bool:
+    """Whether the residual stream is split along S (sequence
+    parallelism)."""
+    ctx = current()
+    return ctx is not None and ctx.sp
+
+
+def bind(fn):
+    """``fn`` run under the context active now, wherever it is called: a
+    rematerialized forward runs again in the backward, which autograd may
+    run on another thread."""
+    ctx = current()
+
+    def bound(*args, **kwargs):
+        with _using(ctx):
+            return fn(*args, **kwargs)
+    return bound
 
 
 @contextlib.contextmanager
@@ -139,6 +223,9 @@ def reset_counts() -> None:
 
 
 def _all_reduce(x: torch.Tensor, op, ctx: TPContext) -> torch.Tensor:
+    if ctx.mesh is not None:
+        return ctx.mesh.all_reduce(
+            x, ctx.axis, "max" if op == dist.ReduceOp.MAX else "sum")
     out = x.contiguous().clone()
     if not ctx.dry:
         dist.all_reduce(out, op=op, group=ctx.group)
@@ -159,24 +246,164 @@ def _all_gather(x: torch.Tensor, ctx: TPContext) -> list[torch.Tensor]:
     return parts
 
 
-def reduce(x: torch.Tensor) -> torch.Tensor:
-    """Row-parallel all-reduce (sum over the ranks); the identity without
-    an active context."""
+SEQ_DIM = 1   # S of the [B, S, ...] activations sequence parallelism splits
+
+
+def _gather_seq(x: torch.Tensor, ctx: TPContext) -> torch.Tensor:
+    return ctx.mesh.all_gather(x, ctx.axis, SEQ_DIM)
+
+
+def _scatter_seq(x: torch.Tensor, ctx: TPContext) -> torch.Tensor:
+    return ctx.mesh.reduce_scatter(x, ctx.axis, SEQ_DIM)
+
+
+class _Sum(torch.autograd.Function):
+    """All-reduce; the backward is the identity (every rank uses the sum
+    alike, so each already holds its whole gradient) or, with
+    ``grad_sum``, an all-reduce too (each rank uses the sum in its own
+    computation)."""
+
+    @staticmethod
+    def forward(c, x, ctx, grad_sum):
+        c.tp, c.grad_sum = ctx, grad_sum
+        return _all_reduce(x, dist.ReduceOp.SUM, ctx)
+
+    @staticmethod
+    def backward(c, g):
+        if c.grad_sum:
+            g = _all_reduce(g, dist.ReduceOp.SUM, c.tp)
+        return g, None, None
+
+
+class _CopyIn(torch.autograd.Function):
+    """The identity; the backward all-reduces the gradient."""
+
+    @staticmethod
+    def forward(c, x, ctx):
+        c.tp = ctx
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(c, g):
+        return _all_reduce(g, dist.ReduceOp.SUM, c.tp), None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather along S; the backward reduce-scatters along S."""
+
+    @staticmethod
+    def forward(c, x, ctx):
+        c.tp = ctx
+        return _gather_seq(x, ctx)
+
+    @staticmethod
+    def backward(c, g):
+        return _scatter_seq(g, c.tp), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Reduce-scatter along S; the backward all-gathers along S."""
+
+    @staticmethod
+    def forward(c, x, ctx):
+        c.tp = ctx
+        return _scatter_seq(x, ctx)
+
+    @staticmethod
+    def backward(c, g):
+        return _gather_seq(g, c.tp), None
+
+
+class _SplitSeq(torch.autograd.Function):
+    """This rank's block along S; the backward all-gathers along S."""
+
+    @staticmethod
+    def forward(c, x, ctx):
+        c.tp = ctx
+        n = x.shape[SEQ_DIM] // ctx.size
+        return x.narrow(SEQ_DIM, ctx.rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(c, g):
+        return _gather_seq(g, c.tp), None
+
+
+def _active():
     ctx = current()
-    if ctx is None or ctx.size == 1:
+    return None if ctx is None or ctx.size == 1 else ctx
+
+
+def reduce(x: torch.Tensor) -> torch.Tensor:
+    """Row-parallel sum over the ranks: an all-reduce whose backward is
+    the identity; under sequence parallelism a reduce-scatter along S
+    (backward: all-gather).  The identity without an active context."""
+    ctx = _active()
+    if ctx is None:
         return x
-    return _all_reduce(x, dist.ReduceOp.SUM, ctx)
+    if ctx.sp:
+        return _ScatterSeq.apply(x, ctx)
+    return _Sum.apply(x, ctx, False)
+
+
+def total(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the ranks of a value every rank then uses alike (the
+    vocab-parallel cross entropy's sums): backward the identity."""
+    ctx = _active()
+    if ctx is None:
+        return x
+    return _Sum.apply(x, ctx, False)
+
+
+def copy_in(x: torch.Tensor) -> torch.Tensor:
+    """A replicated tensor entering computation that differs between the
+    ranks: the identity, whose backward all-reduces the gradient (each
+    rank's is a partial sum).  The identity without an active context."""
+    ctx = _active()
+    if ctx is None:
+        return x
+    return _CopyIn.apply(x, ctx)
+
+
+def enter(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream [B, S, ...] entering a column-parallel group:
+    :func:`copy_in`, or under sequence parallelism the all-gather of its
+    S-shards (backward: reduce-scatter along S)."""
+    ctx = _active()
+    if ctx is not None and ctx.sp:
+        return _GatherSeq.apply(x, ctx)
+    return copy_in(x)
+
+
+def replicated(p: dict) -> dict:
+    """A replicated projection's parameters (``{"w": ...}``) where its
+    output enters computation that differs between the ranks (the SSM's
+    wB / wC, the MoE router): its weight through :func:`copy_in`, so each
+    rank's weight gradient is the ranks' sum.  ``p`` itself without an
+    active context."""
+    if _active() is None:
+        return p
+    return {k: copy_in(v) if k == "w" else v for k, v in p.items()}
+
+
+def split_seq(x: torch.Tensor) -> torch.Tensor:
+    """This rank's block along S of a replicated [B, S, ...] tensor under
+    sequence parallelism (backward: all-gather); else ``x``."""
+    ctx = _active()
+    if ctx is None or not ctx.sp:
+        return x
+    return _SplitSeq.apply(x, ctx)
 
 
 def reduce_max(x: torch.Tensor) -> torch.Tensor:
-    """Elementwise max over the ranks; the identity without an active
-    context.  ``linear.apply`` turns a row-parallel projection's per-shard
-    per-token absmax into the global absmax with it, so every rank
-    quantizes to the values and scale of the unsharded run."""
-    ctx = current()
-    if ctx is None or ctx.size == 1:
+    """Elementwise max over the ranks, with no gradient; the identity
+    without an active context.  ``linear.apply`` turns a row-parallel
+    projection's per-shard per-token absmax into the global absmax with
+    it, so every rank quantizes to the values and scale of the unsharded
+    run; the vocab-parallel cross entropy takes its row maxima."""
+    ctx = _active()
+    if ctx is None:
         return x
-    return _all_reduce(x, dist.ReduceOp.MAX, ctx)
+    return _all_reduce(x.detach(), dist.ReduceOp.MAX, ctx)
 
 
 def gather_last(x: torch.Tensor) -> torch.Tensor:
@@ -212,13 +439,15 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over a feature axis sharded across the ranks: the mean of
     squares is the all-reduced sum of the local sums over the global
     width.  Without an active context this is ``layers.rmsnorm``."""
-    ctx = current()
+    ctx = _active()
     dt = x.dtype
     xf = x.to(torch.float32)
-    if ctx is None or ctx.size == 1:
+    if ctx is None:
         ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     else:
-        ss = reduce(torch.sum(xf * xf, dim=-1, keepdim=True))
+        # each rank normalizes its own features by the sum: the backward
+        # sums the ranks' gradients of it
+        ss = _Sum.apply(torch.sum(xf * xf, dim=-1, keepdim=True), ctx, True)
         ms = ss / (x.shape[-1] * ctx.size)
     xf = xf * torch.rsqrt(ms + eps)
     return (xf * params["g"]).to(dt)
@@ -329,11 +558,26 @@ def shard_params(params, cfg, rank_: int, tp: int):
 
 
 # ------------------------------------------------------------ validation
+def degree(cfg, n: int) -> int:
+    """The split degree of ``cfg`` over an axis of ``n`` ranks: the
+    largest divisor of ``n`` that :func:`validate` accepts (the rest of
+    the axis holds replicas)."""
+    for t in sorted((d for d in range(1, n + 1) if n % d == 0),
+                    reverse=True):
+        try:
+            validate(cfg, t)
+            return t
+        except ValueError:
+            continue
+    return 1
+
+
 def validate(cfg, tp: int) -> None:
     """Fail fast on configs the TP partitioning cannot express: attention
     heads and KV heads divide tp (head-parallel KV pool), d_ff and vocab
     divide tp, SSM heads divide tp, and, for a packed ``compressed`` /
-    ``slided`` model, each row-parallel K shard holds whole L-groups."""
+    ``slided`` model or a ``masked`` one (STE-pruned per shard in
+    training), each row-parallel K shard holds whole L-groups."""
     if tp <= 1:
         return
     errs = []
@@ -351,14 +595,16 @@ def validate(cfg, tp: int) -> None:
         if n_heads % tp:
             errs.append(f"ssm heads={n_heads}")
     sp = cfg.sparsity
-    if sp.pattern is not None and sp.mode in ("slided", "compressed"):
+    if sp.pattern is not None and sp.mode in ("slided", "compressed",
+                                              "masked"):
         l = sp.pattern[1]
         qdim = cfg.num_heads * cfg.resolved_head_dim
         row_ks = [("attn wo", qdim), ("w_down", cfg.d_ff)]
         if "ssm" in cfg.unit_pattern:
             row_ks.append(("ssm wo", cfg.ssm_expand * cfg.d_model))
         for name, k in row_ks:
-            # a layer is only packed when L divides its K (pack_params)
+            # a layer is only packed when L divides its K (pack_params);
+            # ste_prune refuses any other K
             if k and k % l == 0 and (k // tp) % l:
                 errs.append(f"{name}: K/tp={k // tp} not a multiple of "
                             f"L={l} (pattern group would straddle shards)")

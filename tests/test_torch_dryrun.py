@@ -260,6 +260,35 @@ def test_dry_mesh_counts_equal_a_real_gloo_run():
         assert dry["resident_bytes"] == real[r]["resident"]
 
 
+def test_split_halves_a_rank_s_flops_at_model_2():
+    """The train step splits its compute along ``model``: the smoke
+    danube step's FLOPs a rank over (data 1, model 2) are at most 0.6 of
+    (data 1, model 1)'s (the linears, the attention and the LM head
+    halve; the norms, the embedding and AdamW's pieces do not), and
+    ``sequence_parallel`` keeps them while counting the reduce-scatters
+    of its row-parallel sums."""
+    cfg = dataclasses.replace(
+        treg.smoke_config("h2o-danube-3-4b"),
+        sparsity=tlin.SparsityConfig(pattern=(6, 8), mode="masked"))
+    opt = tadamw.AdamWConfig(state_dtype="int8")
+    one = dryrun.train_step_dry(cfg, opt, 8, 32, {"data": 1, "model": 1},
+                                device="cpu")
+    two = dryrun.train_step_dry(cfg, opt, 8, 32, {"data": 1, "model": 2},
+                                device="cpu")
+    sp = dryrun.train_step_dry(
+        dataclasses.replace(cfg, sequence_parallel=True), opt, 8, 32,
+        {"data": 1, "model": 2}, device="cpu")
+    assert (one["tp"], two["tp"], two["replicas"]) == (1, 2, 1)
+    assert two["counts"]["flops"] <= 0.6 * one["counts"]["flops"]
+    assert two["peak_bytes"] < one["peak_bytes"]
+    assert sp["counts"]["flops"] == two["counts"]["flops"]
+    assert "reduce-scatter" in sp["collectives"]
+    assert "reduce-scatter" not in two["collectives"]
+    four = dryrun.train_step_dry(cfg, opt, 8, 32, {"data": 1, "model": 4},
+                                 device="cpu")
+    assert (four["tp"], four["replicas"]) == (2, 2)   # two KV heads
+
+
 def test_live_bytes_tracks_storages_and_frees():
     live = dryrun.LiveBytes()
     with FakeTensorMode():
@@ -384,6 +413,9 @@ def test_cell_options(monkeypatch):
         < train["flops_per_rank"]
     assert cell("train_4k", grad_accum=2)["flops_per_rank"] \
         == train["flops_per_rank"]
+    sp = cell("train_4k", seq_par=True)
+    assert sp["sequence_parallel"] and sp["tp"] == 2
+    assert sp["flops_per_rank"] == train["flops_per_rank"]
     sparse = cell("decode_32k", sparse=(6, 8), precision="int8")
     assert sparse["kernels"]["compressed_matmul"]["calls"] > 0
     assert not base["kernels"]
