@@ -87,7 +87,8 @@ Phases (any failed check exits nonzero):
    1536, 3072, 49155, 50280 and K = 1536, 3072), then granite-moe-3b-a800m
    (attention + MoE: B1 + B2 compressed, B3 + B2 slided) and mamba2-780m
    (Mamba-2 SSD: B1 or B3 alone, ``wo`` drawn at random), each at full
-   width and depth, int8, bf16, fused attention, batch 4, page 16, chunk
+   width, FAMILY_LAYERS deep (half the registered depth, for the run's
+   time budget), int8, bf16, fused attention, batch 4, page 16, chunk
    128, one seeded draw packed both ways: no host sync, one capture per
    step, graphed == eager and slided == compressed bit for bit; granite's
    last-prefill logits at its capacity factor each below both of that
@@ -209,7 +210,8 @@ Phases (any failed check exits nonzero):
    slided engine captured on the tuned cache giving phase 5's streams
    (and with speculate=3, random drafts, too), one capture a step, its
    graphed decode tok/s in turns with one captured before tuning; the
-   dry run in child processes (fake CUDA tensors): phase 10's
+   dry run in child processes (fake CUDA tensors; ``main`` starts them
+   with phase 10, whose training leaves the host's cores idle): phase 10's
    configuration's peak within DRY_PEAK_RTOL of phase 10's measured
    ``max_memory_allocated``, phase 12's on a dry (data 2, model 2) mesh
    equal to phase 12's ranks' resident bytes, collectives and their
@@ -231,10 +233,31 @@ Phases (any failed check exits nonzero):
    repro_torch.launch.train_tiny_lm --int8-opt --sparse 6 8`` as a child
    to TINY_STEPS and rerun to twice that (resumed from its checkpoint,
    the loss falling), beside (b); the phase within PHASE14_S seconds;
-15. a ``kernels`` JSON line (the five kernels, launches of the
+15. the sequence-sharded serve step (ROADMAP A.4): h2o-danube-3-4b at
+   full width, depth cut to SEQ_LAYERS, 6:8 int8, long_500k's S =
+   524288 at batch 1, over four gloo ranks sharing the card
+   (``seq_rank``, (data 2, model 2): S over (data, model), 131072
+   positions a rank, heads split two ways) beside the single device's
+   reference here; each rank loads the seed-0 weights the parent packed
+   and keeps its shard, builds its S-slice of the cache at the local shape and draws
+   it by S-blocks seeded per (unit, leaf, block), as the reference draws
+   the whole; per mode (``compressed``, then ``slided``) SEQ_STEPS
+   greedy steps from SEQ_KV0 (the window straddling shards 0 and 1) and
+   SEQ_END_STEPS ending at the last position of S, each step fed the
+   reference's token: every token the reference's, or a tie (the two
+   tokens' logit difference moved by at most SEQ_TIE), on every rank,
+   logits within SEQ_RL2 beside two planted
+   faults read in the same run (the combine without its exp(m_i - M)
+   rescale, shard 0's partials left out) that must exceed it, B1 (then
+   B3) launched on every rank, each rank's cache a quarter of the whole;
+   ms a step, collectives a step, each rank's ``max_memory_allocated``;
+   the phase within PHASE15_S seconds (``seq_witness``, not a phase,
+   splits its logit gap between its sources);
+16. a ``kernels`` JSON line (the five kernels, launches of the
    h2o-danube-3-4b runs, and B3's act_absmax instance with the launches
    of phase 11's slided run; phase 12's zero launches; phase 14's
-   quickstart launches), the card line, and the final result line.
+   quickstart launches; phase 15's rank 0 launches), the card line, and
+   the final result line.
 
 It imports neither JAX nor the JAX package, and prints every table it
 measures on standard output.
@@ -2047,6 +2070,10 @@ def _launcher_kv_check(torch, card):
 
 # ----------------------------------------------------------------- phase 8
 FAMILIES = ("granite-moe-3b-a800m", "mamba2-780m")
+# their depth in phase 8: half the registered 32 and 48 layers, so the
+# whole run keeps its 1200 s budget (every gate reads the same at any
+# depth; the float gate keeps mamba2's full 48)
+FAMILY_LAYERS = {"granite-moe-3b-a800m": 16, "mamba2-780m": 24}
 # granite's one-shot prefill dispatches a T-token prompt as one MoE group
 # while T <= the group size (256), and asserts divisibility above it (as
 # JAX does), so its prompts stay within one group
@@ -2427,17 +2454,19 @@ def _family_run(torch, card, arch, setup=None):
 def phase_families(torch, card):
     """Phase 8: granite-moe-3b-a800m (attention + MoE: B1 + B2
     compressed, B3 + B2 slided) and mamba2-780m (SSD: B1 or B3 alone),
-    each at full width and depth, int8, bf16, fused attention, batch 4,
-    page 16, chunk 128, both packings from one seeded draw; the kernel
-    shapes the two add; and the fp32 float gate on mamba2."""
+    each at full width and FAMILY_LAYERS deep, int8, bf16, fused
+    attention, batch 4, page 16, chunk 128, both packings from one seeded
+    draw; the kernel shapes the two add; and the fp32 float gate on
+    mamba2 at full depth."""
     log("== families: the kernel shapes granite-moe-3b-a800m and "
         "mamba2-780m add, against the plain versions ==")
     out = {"err": _family_kernel_shapes(torch)}
     for arch in FAMILIES:
-        log(f"== families: {arch}, full width and depth, 6:8 int8, bf16, "
-            "fused attention; compressed and slided, eager, graphed, "
-            "overlapped ==")
-        out[arch] = _family_run(torch, card, arch)
+        log(f"== families: {arch}, full width, {FAMILY_LAYERS[arch]} "
+            "layers, 6:8 int8, bf16, fused attention; compressed and "
+            "slided, eager, graphed, overlapped ==")
+        out[arch] = _family_run(torch, card, arch, _family_setup(
+            torch, arch, num_layers=FAMILY_LAYERS[arch]))
         torch.cuda.empty_cache()
     log("== families: float gate, mamba2-780m full width and depth, 6:8 "
         "compressed, recipe none, fp32; streams vs one-shot generate ==")
@@ -2877,10 +2906,12 @@ def report_audio_vision(av, card):
 
 # ---------------------------------------------------------------- phase 10
 # the launcher at full width and depth: its default batch and sequence
-# (8 x 256 tokens a step), 30 steps; warmup_cosine's 100-step warmup
-# scales the rate by step / 100, so at lr 3e-3 the rate peaks at 8.7e-4
-# on step 29, near the peak rates LLM pretraining uses
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 256, 30, 3e-3
+# (8 x 256 tokens a step), 20 steps (30 until the run's budget tightened;
+# on an H100 80GB HBM3 at 700 W the losses repeat to the digit between
+# calls, and their first 20 fall from 10.764 to 9.387, first five to last
+# five); warmup_cosine's 100-step warmup scales the rate by step / 100,
+# so at lr 3e-3 the rate peaks at 5.7e-4 on step 19
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 256, 20, 3e-3
 PARITY_LR = 1e-2
 # (a): card vs CPU params after 3 steps, relative L2; on an H100 80GB HBM3
 # the sound card read 7.5e-9 and the planted fault 6.9e-4
@@ -4680,9 +4711,14 @@ def _capture_tunes_nothing(torch, autotune, ops, keep):
         "the replay equals the eager call")
 
 
-def phase_tuning(torch, card, want, training, mesh):
+DRY_KINDS = ("production", "launcher", "mesh")
+
+
+def phase_tuning(torch, card, want, training, mesh, dry):
     """Phase 13: the cost model's bounds, the autotuner on the card and
-    the dry run held against phases 10 and 12 (the module docstring)."""
+    the dry run held against phases 10 and 12 (the module docstring);
+    ``dry``: the dry runs' children, ``_dry_start`` of DRY_KINDS, which
+    ``main`` starts with phase 10."""
     import dataclasses
     import os
     import tempfile
@@ -4690,7 +4726,6 @@ def phase_tuning(torch, card, want, training, mesh):
     from repro_torch.launch import analysis
     t0 = time.time()
     log("== phase 13: the cost model, the autotuner and the dry run ==")
-    dry = _dry_start(("production", "launcher", "mesh"), {"device": "cuda"})
     tmp = tempfile.mkdtemp(prefix="autotune_")
     saved = os.environ.get("REPRO_AUTOTUNE_CACHE")
     os.environ["REPRO_AUTOTUNE_CACHE"] = f"{tmp}/autotune.json"
@@ -4811,7 +4846,7 @@ QUICK_TOL = 1e-4      # fp32, K = 1024, |y| < 8: max |compressed - dense|,
                       # order; a few ulps of 8 = 4.8e-7 each)
 QUICK_INT8_REL = 0.05  # the w8a8 mean relative error (JAX's CPU run 0.0306)
 QUICK_BYTES = (1048576, 884736)  # bf16 dense -> values + 2-bit metadata
-SWEEP_S = 50          # the sweep's five regimes on the card, its probe aside
+SWEEP_S = 25          # the sweep's five regimes on the card, its probe aside
 SWEEP_PROBE = 12      # steps of the probe that times one (6:8) regime
 SWEEP_BATCH, SWEEP_SEQ = 8, 128   # examples/sparsity_sweep.py's defaults
 # examples/sparsity_sweep.py --steps 150 --precision int8 (JAX) on a CPU,
@@ -4983,6 +5018,537 @@ def phase_library(torch, card):
     log(f"phase 14 (library API and examples): {out['seconds']:.1f} s "
         f"(budget {PHASE14_S} s; {card})")
     assert out["seconds"] <= PHASE14_S, out["seconds"]
+    return out
+
+
+# ---------------------------------------------------------------- phase 15
+# h2o-danube-3-4b at full width, depth cut to SEQ_LAYERS, long_500k's
+# S = 524288 at batch 1 (8.05 GB of bf16 KV; 24 layers would need 48.3 GB
+# sharded plus the reference's copy: 96.6 GB on one card), over four gloo
+# ranks (data 2, model 2): S over (data, model), 131072 positions a rank
+SEQ_LAYERS, SEQ_S, SEQ_RANKS, SEQ_SHAPE = 4, 524288, 4, (2, 2)
+# the first run starts where the window (4096) straddles shards 0 and 1;
+# the second ends at the last position of S
+SEQ_KV0, SEQ_STEPS, SEQ_END_STEPS = 131072 + 2000, 8, 2
+SEQ_BLOCK = 4096               # S-block of the seeded cache draw
+# each planted fault as a stand-in for ``seq.merge``, given the sound one
+SEQ_PLANTS = {
+    "no_rescale": lambda merge: lambda p: p[..., :-2].sum(0)
+    / p[..., -2].sum(0)[..., None],
+    "drop_shard": lambda merge: lambda p: merge(p[1:]),
+}
+SEQ_FAULTS = tuple(SEQ_PLANTS)
+# the sharded logits vs the single device's (relative L2, worst step, each
+# step fed the reference's token); the planted faults' first step must
+# read above it.  On an H100 80GB HBM3 (700 W) the sound steps read
+# 0.0703-0.0835, the faults 0.490 (no rescale) and 1.12 (shard 0 left
+# out).  ``seq_witness`` places the gap: one rank with S whole (neither
+# S nor the heads split, only the merge's order: the unnormalized p
+# rounded to bf16 before p@V where the reference rounds the normalized
+# p) reads 0.0854, S alone 0.0835, TP alone 0.0853, and recipe none at
+# (2, 2) 0.0168, so int8 activations amplify that one rounding five
+# times.  The limit is 1.2x the one-rank floor
+SEQ_RL2 = 0.1
+# a step whose token differs from the reference's: the reference's margin
+# of its token over the rank's plus the rank's margin the other way (how
+# far that pair's difference moved) must stay within it.  The same
+# witnesses move the reference's top-2 pair by at most 0.234 on a step
+SEQ_TIE = 0.3
+# the attention alone at the whole cache's shapes (bf16, no int8): the
+# four S-shards' partials merged vs the single device's softmax; sound
+# ~0.0037 (bf16 roundings of p and p@V; a CPU estimate at S = 32768),
+# no rescale ~0.20, shard 0 left out ~1.0
+SEQ_ATTN_RL2 = 0.025
+SEQ_TIMEOUT = 600
+PHASE15_S = 90                 # the phase's budget on the card
+
+
+def _seq_setup(setup):
+    """(cfg per mode, S, kv_len of the first run, S-block): full width at
+    SEQ_LAYERS layers on the card; the smoke width at S = 256 (a window
+    of 16 over shards of 64) for a rehearsal on the CPU, in
+    ``setup["dtype"]`` where given; recipe int8 unless ``setup["recipe"]``
+    names another, both modes unless ``setup["modes"]`` names some."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.core.linear import SparsityConfig
+    arch = "h2o-danube-3-4b"
+    if setup.get("smoke"):
+        base = dataclasses.replace(registry.smoke_config(arch), num_layers=2,
+                                   dtype=setup.get("dtype", "float32"))
+        s, kv0, block = 256, 64 + 5, 16
+    else:
+        base = dataclasses.replace(registry.get(arch), num_layers=SEQ_LAYERS)
+        s, kv0, block = SEQ_S, SEQ_KV0, SEQ_BLOCK
+    cfgs = {mode: dataclasses.replace(base, sparsity=SparsityConfig(
+        pattern=(6, 8), mode=mode, recipe=setup.get("recipe", "int8")))
+        for mode in setup.get("modes", ("compressed", "slided"))}
+    return cfgs, s, kv0, block
+
+
+def _seq_params(torch, cfgs, dev):
+    """The seed-0 draw packed both ways."""
+    from repro_torch.models import model as M
+    from repro_torch.runtime import serve_loop
+    raw = M.init(cfgs["compressed"], torch.Generator(device=dev)
+                 .manual_seed(0))
+    out = {mode: serve_loop.pack_params(raw, cfg)
+           for mode, cfg in cfgs.items()}
+    del raw
+    return out
+
+
+def _seq_fill(torch, cache, offset, block):
+    """Draw the K/V of positions ``offset`` on of each attention leaf of
+    ``cache`` (a whole cache, or a rank's piece starting at ``offset``)
+    in S-blocks of ``block``, each from a generator seeded by (unit,
+    leaf, block index): every rank draws only its slice, and the whole
+    cache drawn so holds the same values."""
+    for u, unit in enumerate(cache):
+        for key in sorted(unit):
+            for j, name in enumerate(("k", "v")):
+                x = unit[key][name]
+                for i in range(x.shape[1] // block):
+                    blk = (offset + i * block) // block
+                    seed = ((u * 64 + int(key[6:])) * 2 + j) * 2 ** 20 + blk
+                    g = torch.Generator(device=x.device).manual_seed(seed)
+                    sl = x[:, i * block:(i + 1) * block]
+                    sl.copy_(torch.randn(sl.shape, generator=g,
+                                         device=x.device))
+
+
+def _seq_runs(torch, cfg, params, cache, s, kv0, token, feed=None, **mesh):
+    """The two greedy runs: SEQ_STEPS tokens from ``kv0``, then
+    SEQ_END_STEPS ending at the last position of S, each first fed
+    ``token``.  With ``feed`` (the reference's tokens [1, n], a step's
+    output feeding the next) each later step is fed the reference's
+    token instead of its own, so every step's logits compare with the
+    reference's at equal inputs.  Returns (tokens [1, n], logits [1, n,
+    V] as fp32 on the host, seconds of each step)."""
+    from repro_torch.runtime import steps
+    toks, logits, secs = [], [], []
+    for kv, n in ((kv0, SEQ_STEPS), (s - SEQ_END_STEPS, SEQ_END_STEPS)):
+        kv_len = torch.full((1,), kv, dtype=torch.int32, device=token.device)
+        tok = token
+        for _ in range(n):
+            _sync(torch, token)
+            t0 = time.time()
+            t, lg, cache, kv_len = steps.decode(cfg, params, tok, cache,
+                                                kv_len, 1, **mesh)
+            _sync(torch, token)
+            secs.append(time.time() - t0)
+            toks.append(t.cpu())
+            logits.append(lg.float().cpu())
+            tok = t[:, 0] if feed is None else \
+                feed[:, len(toks) - 1].to(token.device)
+    return torch.cat(toks, 1), torch.cat(logits, 1), secs
+
+
+def _sync(torch, t):
+    if t.is_cuda:
+        torch.cuda.synchronize()
+
+
+def seq_rank(root: str, setup_json: str) -> int:
+    """One of phase 15's ranks (``_seq_job`` starts them, all on cuda:0,
+    over gloo): the seed-0 weights packed per mode (written by the
+    parent), this rank's tensor-parallel shard kept; its S-slice of the
+    cache built at the local shape and drawn by blocks; per mode the two
+    greedy runs of the sequence-sharded step, every kernel count set to 0
+    just before them; then on the first mode's packing one step under
+    each planted fault (SEQ_PLANTS).  ``setup["shape"]`` (data, model)
+    sizes the mesh (SEQ_SHAPE by default); with ``setup["whole_s"]`` every
+    rank holds the whole cache and S is not split (the tensor
+    parallelism alone); ``setup["faults"]`` False plants none.  Writes
+    ``seq{rank}.pt`` under ``root``."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps
+    from repro_torch.sharding import ctx, dist as tdist, rules, seq
+    setup = json.loads(setup_json)
+    rank, _ = tdist.init("gloo")
+    dev = tdist.device_for(None if setup["device"] == "cuda"
+                           else setup["device"])
+    counters = _counters()
+    cfgs, s, kv0, block = _seq_setup(setup)
+    t0 = time.time()
+    mesh = ctx.Mesh(tuple(setup.get("shape", SEQ_SHAPE)), ("data", "model"),
+                    device=dev)
+    whole = _seq_wait(torch, root, "params.pt", dev)
+    params = {mode: steps.serve_params(p, cfgs[mode], mesh)
+              for mode, p in whole.items()}
+    del whole
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = next(iter(cfgs.values()))
+    meta = M.make_cache(cfg, 1, s, device="meta")
+    if setup.get("whole_s"):
+        axis = steps.serve_axis(cfg, mesh)
+        lay = dataclasses.replace(
+            rules.serve_cache_layout(meta, mesh, axis),
+            seq=seq.SeqShard(mesh, (), 0, s))
+        cache = M.make_cache(cfg, 1, s, device=dev)
+    else:
+        cache, lay = steps.seq_cache(cfg, 1, s, mesh)
+    _seq_fill(torch, cache, lay.seq.offset, block)
+    out = {"setup_s": time.time() - t0, "seq": (lay.seq.axes, lay.seq.offset,
+                                               lay.seq.length),
+           "cache_bytes": rules.resident_bytes(cache),
+           "whole_cache_bytes": rules.resident_bytes(meta),
+           "linear_bytes": {m: _linear_bytes(p) for m, p in params.items()}}
+    token = torch.full((1,), 7, dtype=torch.int32, device=dev)
+    feed = _seq_wait(torch, root, "ref.pt")
+    for mode in cfgs:
+        for mod in counters.values():
+            mod.reset_counts()
+        ctx.reset_counts()
+        toks, logits, secs = _seq_runs(torch, cfgs[mode], params[mode],
+                                       cache, s, kv0, token, feed=feed[mode],
+                                       mesh=mesh, layout=lay)
+        out[mode] = {"tokens": toks, "logits": logits, "step_s": secs,
+                     "collectives": ctx.collective_count()
+                     / (SEQ_STEPS + SEQ_END_STEPS),
+                     "kinds": ctx.collectives_by_kind(),
+                     "launches": {n: m.launch_count()
+                                  for n, m in counters.items()}}
+        # B3's row-parallel calls given the rows' global absmax
+        out[mode]["launches"]["fused_slided_matmul[act_absmax]"] = \
+            counters["fused_slided_matmul"].act_absmax_count()
+    out["faults"] = {}
+    sound = seq.merge
+    for name in SEQ_FAULTS if setup.get("faults", True) else ():
+        seq.merge = SEQ_PLANTS[name](sound)
+        try:
+            kv_len = torch.full((1,), kv0, dtype=torch.int32, device=dev)
+            _, lg, cache, _ = steps.decode(cfg, params[next(iter(cfgs))],
+                                           token, cache, kv_len, 1,
+                                           mesh=mesh, layout=lay)
+        finally:
+            seq.merge = sound
+        out["faults"][name] = lg.float().cpu()
+    out["max_memory_allocated"] = (torch.cuda.max_memory_allocated()
+                                   if dev.type == "cuda" else None)
+    out["seconds"] = time.time() - t0
+    torch.save(out, f"{root}/seq{rank}.pt")
+    return 0
+
+
+def _seq_wait(torch, root, name, device="cpu"):
+    """What the parent writes under ``root`` as ``name`` (the packed
+    weights, then the reference's tokens), once it is there; raises if
+    the parent failed."""
+    t0 = time.time()
+    while time.time() - t0 < SEQ_TIMEOUT:
+        if Path(f"{root}/ref.failed").exists():
+            raise RuntimeError("phase 15's reference failed")
+        if Path(f"{root}/{name}").exists():
+            return torch.load(f"{root}/{name}", map_location=device,
+                              weights_only=False)
+        time.sleep(0.2)
+    raise TimeoutError(f"phase 15's reference wrote no {name}")
+
+
+def _seq_put(torch, root, name, obj):
+    """Write ``obj`` under ``root`` as ``name`` whole (renamed into
+    place), for the ranks' ``_seq_wait``."""
+    import os
+    torch.save(obj, f"{root}/{name}.tmp")
+    os.replace(f"{root}/{name}.tmp", f"{root}/{name}")
+
+
+def _seq_reference(torch, setup, root):
+    """The single device's side: the weights drawn and packed once and
+    written for the ranks, the whole cache drawn by the same blocks as
+    theirs, the same runs through the unsharded step; with planted
+    faults (the gated phase) also the attention alone."""
+    import gc
+    from repro_torch.models import model as M
+    cfgs, s, kv0, block = _seq_setup(setup)
+    dev = torch.device(setup["device"])
+    params = _seq_params(torch, cfgs, dev)
+    _seq_put(torch, root, "params.pt", params)
+    cfg = next(iter(cfgs.values()))
+    cache = M.make_cache(cfg, 1, s, device=dev)
+    _seq_fill(torch, cache, 0, block)
+    token = torch.full((1,), 7, dtype=torch.int32, device=dev)
+    out = {}
+    for mode in cfgs:
+        toks, logits, secs = _seq_runs(torch, cfgs[mode], params[mode],
+                                       cache, s, kv0, token)
+        out[mode] = {"tokens": toks, "logits": logits, "step_s": secs}
+    if setup.get("faults", True):
+        out["attention"] = _seq_attention(torch, cfg, cache, s, kv0)
+    del cache, params
+    gc.collect()
+    return out
+
+
+def _seq_attention(torch, cfg, cache, s, kv0):
+    """The combine alone, at the whole cache's shapes: a seeded query
+    against layer 0's K/V, the single device's ``_decode_sdpa`` vs the
+    partials of SEQ_RANKS S-slices (``_decode_partials``) merged by
+    ``seq.merge``, at SEQ_KV0 (the window straddling shards 0 and 1) and
+    at the last position of S; at SEQ_KV0 also the merge under each
+    planted fault (SEQ_PLANTS).  Relative L2 of the outputs."""
+    from repro_torch.models import attention, transformer
+    from repro_torch.sharding import seq
+    spec = transformer.attn_spec(cfg, "swa")
+    k, v = cache[0]["layer_0"]["k"], cache[0]["layer_0"]["v"]
+    h, hd = spec.num_heads, spec.head_dim
+    q = torch.randn((1, 1, h, hd), generator=torch.Generator(
+        device=k.device).manual_seed(5), device=k.device).to(k.dtype)
+    n, length = SEQ_RANKS, s // SEQ_RANKS
+    merges = {"sound": seq.merge, **{name: SEQ_PLANTS[name](seq.merge)
+                                     for name in SEQ_FAULTS}}
+    out = {}
+    for at, kv in (("straddle", kv0), ("end", s - 1)):
+        valid = torch.full((1,), kv + 1, dtype=torch.int32, device=k.device)
+        want = attention._decode_sdpa(spec, q, k, v, valid).float()
+        parts = []
+        for i in range(n):
+            m, l, acc = attention._decode_partials(
+                spec, q, k[:, i * length:(i + 1) * length],
+                v[:, i * length:(i + 1) * length], valid, i * length)
+            parts.append(torch.cat([acc, l[..., None], m[..., None]], -1))
+        parts = torch.stack(parts)
+        for name, merge in merges.items():
+            if at == "end" and name != "sound":
+                continue
+            got = merge(parts).permute(0, 3, 1, 2, 4).reshape(
+                1, 1, h, hd).to(q.dtype).float()
+            out[f"{at} {name}"] = float((got - want).norm() / want.norm())
+    return out
+
+
+def _seq_ties(torch, got, want):
+    """The steps whose token differs from the reference's: [(step, the
+    reference's margin of its token a over the rank's b, the rank's
+    margin of b over a)].  Their sum is how far that pair's difference
+    moved; a tie within rounding keeps it within SEQ_TIE.  Every step
+    was fed the reference's input, so each compares on its own."""
+    out = []
+    for i in range(want["tokens"].shape[1]):
+        a, b = int(want["tokens"][0, i]), int(got["tokens"][0, i])
+        if a != b:
+            w, g = want["logits"][0, i], got["logits"][0, i]
+            out.append((i, float(w[a] - w[b]), float(g[b] - g[a])))
+    return out
+
+
+def _seq_pair_shifts(torch, got, want):
+    """Each step's sound-run noise on a pair: how far the difference of
+    the reference's top two logits moved in the rank's logits."""
+    out = []
+    for i in range(want["logits"].shape[1]):
+        w, g = want["logits"][0, i], got["logits"][0, i]
+        a, c = torch.topk(w, 2).indices.tolist()
+        out.append(float(abs((g[a] - g[c]) - (w[a] - w[c]))))
+    return out
+
+
+def _seq_rl2(torch, a, b) -> float:
+    """The worst step's relative L2 of logits [1, n, V]."""
+    return max(float((a[:, i] - b[:, i]).norm() / b[:, i].norm())
+               for i in range(b.shape[1]))
+
+
+def _seq_job(torch, setup):
+    """The ranks (``seq_rank``, as many as ``setup["shape"]`` holds) beside
+    the single device's reference here: (the reference's output, each
+    rank's)."""
+    import concurrent.futures
+    import os
+    import tempfile
+    from repro_torch.sharding import dist as tdist
+    n = math.prod(setup.get("shape", SEQ_SHAPE))
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with tempfile.TemporaryDirectory() as root, \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(
+            tdist.launch, [sys.executable, "-c", "import sys, chip_smoke; "
+                           "sys.exit(chip_smoke.seq_rank(sys.argv[1], "
+                           "sys.argv[2]))", root, json.dumps(setup)],
+            n, env=env, cwd=ROOT, timeout=SEQ_TIMEOUT)
+        try:
+            ref = _seq_reference(torch, setup, root)
+            _seq_put(torch, root, "ref.pt",
+                     {m: ref[m]["tokens"] for m in _seq_setup(setup)[0]})
+        except BaseException:
+            # the ranks wait for the tokens: release them
+            Path(f"{root}/ref.failed").touch()
+            raise
+        for r, text in enumerate(ranks.result()):
+            for line in text.splitlines():
+                log(f"  [seq_rank {r}] {line}")
+        got = [torch.load(f"{root}/seq{r}.pt", weights_only=False)
+               for r in range(n)]
+    return ref, got
+
+
+def _seq_compare(torch, ref, got, mode):
+    """One mode's sharded runs against the reference's: the worst step's
+    relative L2 over the ranks and each step's on rank 0, each rank's
+    differing steps (``_seq_ties``), rank 0's pair noise by step
+    (``_seq_pair_shifts``), the reference's top-2 margins."""
+    want = ref[mode]
+    steps_rl2 = [[float((g[mode]["logits"][:, i] - want["logits"][:, i])
+                        .norm() / want["logits"][:, i].norm())
+                  for i in range(want["logits"].shape[1])] for g in got]
+    return {"sound": max(max(x) for x in steps_rl2),
+            "steps_rl2": steps_rl2,
+            "ties": [_seq_ties(torch, g[mode], want) for g in got],
+            "pair_shifts": _seq_pair_shifts(torch, got[0][mode], want),
+            "margins": [float(v[0] - v[1]) for v in torch.topk(
+                want["logits"][0], 2).values],
+            "tokens": want["tokens"]}
+
+
+def phase_seq_serve(torch, card, setup=None):
+    """Phase 15: the sequence-sharded serve step.  Four gloo ranks on the
+    card (``seq_rank``) beside the single device's reference here; the
+    gates: every token the reference's or a tie (the pair's difference
+    moved by at most SEQ_TIE), logits within SEQ_RL2 beside the two
+    planted faults above it, B1 (compressed) and B3 (slided) launched on
+    every rank, each rank's cache a quarter of the whole; the phase
+    within PHASE15_S seconds."""
+    import gc
+    import statistics
+    setup = setup or {"device": "cuda"}
+    t0 = time.time()
+    cfgs, s, kv0, _ = _seq_setup(setup)
+    cfg = cfgs["compressed"]
+    log(f"== phase 15: the sequence-sharded serve step: h2o-danube-3-4b "
+        f"d{cfg.d_model} at {cfg.num_layers} layers, 6:8 int8, S = {s} at "
+        f"batch 1, {SEQ_RANKS} gloo ranks over (data, model) = "
+        f"{SEQ_SHAPE} ==")
+    ref, got = _seq_job(torch, setup)
+    gc.collect()
+    if setup["device"] == "cuda":
+        torch.cuda.empty_cache()
+    out = {"modes": {}}
+    for mode in cfgs:
+        want = ref[mode]
+        out["modes"][mode] = dict(
+            _seq_compare(torch, ref, got, mode),
+            launches=[g[mode]["launches"] for g in got],
+            step_ms=statistics.median(x * 1e3 for g in got
+                                      for x in g[mode]["step_s"]),
+            ref_step_ms=statistics.median(x * 1e3 for x in want["step_s"]),
+            collectives=[g[mode]["collectives"] for g in got],
+            kinds=got[0][mode]["kinds"])
+    first = ref["compressed"]["logits"][:, :1]
+    out["faults"] = {name: min(_seq_rl2(torch, g["faults"][name], first)
+                               for g in got) for name in SEQ_FAULTS}
+    out["ranks"] = [{k: g[k] for k in ("seq", "cache_bytes",
+                                       "whole_cache_bytes", "linear_bytes",
+                                       "max_memory_allocated", "setup_s",
+                                       "seconds")} for g in got]
+    out["seconds"] = time.time() - t0
+    for mode, m in out["modes"].items():
+        log(f"(15) {mode}: reference tokens {m['tokens'].tolist()}, top-2 "
+            f"margins {[round(x, 4) for x in m['margins']]}; each rank's "
+            f"differing steps (step, reference's margin, rank's margin) "
+            f"{m['ties']} (gate: their sum <= {SEQ_TIE}); the top-2 pair's "
+            f"shift by step (rank 0) "
+            f"{[round(x, 4) for x in m['pair_shifts']]}; logits vs one "
+            f"device by step (rank 0) "
+            f"{[round(x, 5) for x in m['steps_rl2'][0]]}, worst "
+            f"{m['sound']:.4g} (gate {SEQ_RL2}); a sharded step "
+            f"{m['step_ms']:.1f} ms (median; one device "
+            f"{m['ref_step_ms']:.1f} ms); collectives a step "
+            f"{sorted(set(m['collectives']))} {m['kinds']}; launches a rank "
+            f"{[{k: v for k, v in x.items() if v} for x in m['launches']]}")
+    out["attention"] = ref["attention"]
+    log("(15) the attention alone (layer 0, bf16, S-shards merged vs one "
+        "device): " + ", ".join(f"{k} {v:.4g}"
+                                for k, v in out["attention"].items())
+        + f" (gate {SEQ_ATTN_RL2})")
+    r0 = out["ranks"][0]
+    log("(15) planted faults, first step's logits: " + ", ".join(
+        f"{k} {v:.4g}" for k, v in out["faults"].items())
+        + f"; S-slices {[g['seq'][1:] for g in out['ranks']]} over "
+        f"{r0['seq'][0]}; cache a rank {r0['cache_bytes'] / 1e9:.4f} of "
+        f"{r0['whole_cache_bytes'] / 1e9:.4f} GB; max_memory_allocated "
+        f"{[round((g['max_memory_allocated'] or 0) / 1e9, 3) for g in out['ranks']]}"
+        f" GB; rank setup {[round(g['setup_s'], 1) for g in out['ranks']]} s")
+    log(f"phase 15 (sequence-sharded serve step): {out['seconds']:.1f} s "
+        f"(budget {PHASE15_S} s; {card})")
+    for mode, m in out["modes"].items():
+        # a token that differs from the reference's is a tie within
+        # rounding, never more
+        assert all(a + b <= SEQ_TIE for ties in m["ties"]
+                   for _, a, b in ties), (mode, m["ties"])
+        assert m["sound"] <= SEQ_RL2, (mode, m["sound"])
+        kern = "compressed_matmul" if mode == "compressed" \
+            else "fused_slided_matmul"
+        # on the CPU (a rehearsal) the plain versions run
+        assert setup["device"] != "cuda" or \
+            all(x[kern] > 0 for x in m["launches"]), (mode, m["launches"])
+    for name, v in out["faults"].items():
+        assert v > SEQ_RL2, (name, v)
+    for name, v in out["attention"].items():
+        assert (v <= SEQ_ATTN_RL2) == name.endswith("sound"), (name, v)
+    for g in out["ranks"]:
+        assert g["cache_bytes"] * SEQ_RANKS == g["whole_cache_bytes"], g
+    assert setup["device"] != "cuda" or out["seconds"] <= PHASE15_S, \
+        out["seconds"]
+    return out
+
+
+# the witnesses that split phase 15's logit gap between its sources, each
+# against its own single-device reference: (name, setup)
+SEQ_WITNESSES = (
+    ("one rank, S whole (the merge's own rounding), int8",
+     {"shape": (1, 1), "whole_s": True}),
+    ("S alone (data 4, model 1), int8", {"shape": (4, 1)}),
+    ("TP alone (data 1, model 2), S whole, int8",
+     {"shape": (1, 2), "whole_s": True}),
+    ("TP and S (data 2, model 2), recipe none (bf16)",
+     {"shape": (2, 2), "recipe": "none"}),
+)
+
+
+def seq_witness(setup=None) -> dict:
+    """Where phase 15's logits part from the single device's (not a
+    phase of ``main``): phase 15 itself, then each of SEQ_WITNESSES on
+    the compressed packing, no faults planted, every step fed the
+    reference's token; each prints its worst and per-step relative L2,
+    the top-2 pair's shift by step and its differing steps.  Not gated;
+    writes ``chiprun_out/seq_witness.json``:
+
+        python3 -c "import chip_smoke as c; c.seq_witness()"
+    """
+    import torch
+    from repro_torch.kernels import _build
+    setup = setup or {"device": "cuda"}
+    card = card_line() if setup["device"] == "cuda" else "cpu"
+    if setup["device"] == "cuda":
+        _build.build(verbose=False)
+    phase = phase_seq_serve(torch, card, setup)
+    out = {"card": card, "phase15": {
+        mode: {k: m[k] for k in ("sound", "steps_rl2", "ties",
+                                 "pair_shifts", "margins")}
+        for mode, m in phase["modes"].items()}}
+    for name, extra in SEQ_WITNESSES:
+        t0 = time.time()
+        ref, got = _seq_job(torch, {**setup, **extra, "faults": False,
+                                    "modes": ("compressed",)})
+        m = _seq_compare(torch, ref, got, "compressed")
+        out[name] = {k: m[k] for k in ("sound", "steps_rl2", "ties",
+                                       "pair_shifts", "margins")}
+        log(f"(witness) {name}: logits vs one device worst "
+            f"{m['sound']:.4g}, by step (rank 0) "
+            f"{[round(x, 5) for x in m['steps_rl2'][0]]}; the top-2 pair's "
+            f"shift by step {[round(x, 4) for x in m['pair_shifts']]}; "
+            f"differing steps {m['ties'][0]}; {time.time() - t0:.1f} s "
+            f"({card})")
+    Path(ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "seq_witness.json").write_text(
+        json.dumps(out, indent=1, default=str))
     return out
 
 
@@ -5252,6 +5818,10 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.time()
+
+    def mark(label):
+        # the run's budget is 1200 s in all: where each phase starts
+        log(f"[{time.time() - t0:.1f} s] phase {label}")
     libs = _build.build(verbose=True)
     log(f"build: {time.time() - t0:.1f} s -> "
         f"{', '.join(p.name for p in libs.values())}")
@@ -5301,43 +5871,72 @@ def main() -> int:
         log("SASS: cuobjdump not found, tensor-core instructions not counted")
 
     timer = Timer(torch)
+    mark("2 (B1)")
     b1_err, b1 = phase_b1(torch, timer)
+    mark("2b (B3, B4, B5)")
     sl_err, sl = phase_slided_kernels(torch, timer)
+    mark("3 (B2)")
     b2_err, b2 = phase_b2(torch, timer)
     del timer
     torch.cuda.empty_cache()
+    mark("4 (engine)")
     launches, compressed = phase_engine(torch, card)
     torch.cuda.empty_cache()
+    mark("5 (slided engine)")
     slided_launches, slided = phase_slided_engine(torch, card, compressed)
     torch.cuda.empty_cache()
     # both packings (5.76 + 3.61 GB of linears) serve the features phase
     packs = {"compressed": compressed.pop("pack"),
              "slided": slided.pop("pack")}
+    mark("6 (features)")
     features = phase_features(torch, card, packs, compressed["prompts"],
                               compressed["ecfg"], slided["tokens"])
     del packs
     torch.cuda.empty_cache()
+    mark("7 (float gate)")
     phase_float_gate(torch, card)
     torch.cuda.empty_cache()
+    mark("8 (families)")
     families = phase_families(torch, card)
     torch.cuda.empty_cache()
+    mark("9 (audio, vision)")
     audio_vision = phase_audio_vision(torch, card)
-    training = phase_training(torch, card)
-    ref = {mode: {"tokens": d["tokens"], "first": d["first_logits"],
-                  "rows": d["rows"], "eager_tok_s": d["eager_tok_s"]}
-           for mode, d in (("compressed", compressed), ("slided", slided))}
-    gc.collect()  # engines and graphs of earlier phases in cycles
-    torch.cuda.empty_cache()
-    tp = phase_tp(torch, card, ref, Timer(torch))
+    mark("10 (training)")
+    # phase 13's dry runs read nothing of phases 10-12 and run on the
+    # host: they start here, beside phase 10's device-bound training
+    dry = _dry_start(DRY_KINDS, {"device": "cuda"})
+    try:
+        training = phase_training(torch, card)
+        ref = {mode: {"tokens": d["tokens"], "first": d["first_logits"],
+                      "rows": d["rows"], "eager_tok_s": d["eager_tok_s"]}
+               for mode, d in (("compressed", compressed),
+                               ("slided", slided))}
+        gc.collect()  # engines and graphs of earlier phases in cycles
+        torch.cuda.empty_cache()
+        mark("11 (tp)")
+        tp = phase_tp(torch, card, ref, Timer(torch))
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark("12 (mesh)")
+        mesh = phase_mesh(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark("13 (cost model)")
+        tuning = phase_tuning(torch, card, slided["tokens"], training, mesh,
+                              dry)
+    finally:
+        for proc in dry.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     gc.collect()
     torch.cuda.empty_cache()
-    mesh = phase_mesh(torch, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    tuning = phase_tuning(torch, card, slided["tokens"], training, mesh)
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("14 (library)")
     library = phase_library(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("15 (sequence-sharded serve)")
+    seq_serve = phase_seq_serve(torch, card)
     prof, tok_s = slided["profile"], slided["tok_s"]
     for label, pr in prof.items():
         log(f"slided decode step, {label}: {pr['step_ms']:.3f} ms, host "
@@ -5394,7 +5993,22 @@ def main() -> int:
         + f"; tiny LM median step {tl['step_ms']} ms; phase 14 "
         f"{library['seconds']:.1f} s ({card})")
 
+    for mode, m in seq_serve["modes"].items():
+        log(f"sequence-sharded serve step (phase 15) {mode}: "
+            f"{m['step_ms']:.1f} ms a step (one device "
+            f"{m['ref_step_ms']:.1f} ms), collectives a step "
+            f"{sorted(set(m['collectives']))}, logits vs one device "
+            f"{m['sound']:.4g}, faults " + ", ".join(
+                f"{k} {v:.4g}" for k, v in seq_serve["faults"].items())
+            + f"; max_memory_allocated a rank "
+            f"{[round(g['max_memory_allocated'] / 1e9, 3) for g in seq_serve['ranks']]}"
+            f" GB; phase 15 {seq_serve['seconds']:.1f} s ({card})")
+
     quick = library["quickstart"]["launches"]
+    # phase 15: rank 0's launches over both modes' runs
+    seq_launches = {name: sum(m["launches"][0][name]
+                              for m in seq_serve["modes"].values())
+                    for name in seq_serve["modes"]["slided"]["launches"][0]}
 
     def entry(name, source, replaces, n, err, st):
         # phase 12's ranks assert that no kernel launched in training;
@@ -5404,6 +6018,7 @@ def main() -> int:
                 "replaces": replaces, "launches": n,
                 "mesh_training_launches": 0,
                 "quickstart_launches": quick.get(name, 0),
+                "seq_serve_launches": seq_launches[name],
                 "max_abs_err": err,
                 "ms": st["ms"], "kernel_ms": st["ms"],
                 "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
@@ -5436,6 +6051,7 @@ def main() -> int:
               tp["slided"]["act_absmax"], tp["kernels"]["B3_act_absmax"],
               tp["kernels"]["row"]),
     ]
+    mark("16 (the kernels line)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,13 +17,17 @@ the step itself, so every figure is counted from what it runs:
   ``--seq-par`` sets ``cfg.sequence_parallel``); prefill and decode
   cells run the one-shot ``steps.prefill_step`` / ``serve_step`` on the
   tensor-parallel serving shards (``tp.shard_params``) under a dry
-  ``tp`` context, the batch split over ``data`` and ``pod``.  The TP
+  ``tp`` context, the batch split over ``data`` and ``pod``; a decode
+  cell whose batch does not divide them (long_500k's batch of 1) runs
+  the sequence-sharded ``serve_step(mesh=...)`` over a dry mesh instead,
+  each rank holding its S-slice of the cache (``rules.cache_spec``:
+  S over every axis).  The TP
   degree is the ``model`` axis, or its largest divisor the config
   divides into (``tp.validate``: KV heads, SSM heads, vocab), the rest
   of the axis holding replicas; encoder-decoders serve at tp = 1, as
   the port's TP covers decoder stacks only;
 * ``resident_bytes``: this rank's params + optimizer state (train) or
-  its weight shard + cache (serve);
+  its weight shard + cache (serve; ``cache_bytes`` the cache alone);
 * ``peak_bytes``: the most bytes of live tensors (storages, each once)
   at any op boundary of the step, params and state included
   (:class:`LiveBytes`), and whether that fits ``HBM_BYTES`` (an H100
@@ -81,11 +85,6 @@ def fake_device() -> torch.device:
     input metadata asks the device for a stream)."""
     return (torch.device("cuda", 0) if torch.cuda.is_available()
             else torch.device("cpu"))
-
-
-SEQ_SHARDED = ("the one-shot serve step reads the whole cache on every "
-               "rank: long_500k needs the sequence-sharded serve step "
-               "(ROADMAP A.3, item 2)")
 
 
 def production_sizes(multi_pod: bool) -> dict:
@@ -232,10 +231,56 @@ def serve_tp(cfg: ModelConfig, model: int) -> int:
     return tp.degree(cfg, model)
 
 
+def seq_sharded(shape: shp.ShapeSpec, sizes: dict) -> bool:
+    """Whether a decode cell's batch does not divide the data-parallel
+    axes (long_500k's batch of 1), so ``rules.cache_spec`` splits its
+    cache's S over every axis and the cell runs the sequence-sharded
+    serve step."""
+    dp = math.prod(s for a, s in sizes.items() if a != "model")
+    return shape.kind == "decode" and shape.global_batch % dp != 0
+
+
+def seq_serve_step_dry(cfg: ModelConfig, shape: shp.ShapeSpec, sizes: dict,
+                       rank: int = 0, device=None) -> dict:
+    """One sequence-sharded decode step (``steps.serve_step(mesh=...)``)
+    as rank ``rank`` of a dry mesh of ``sizes`` on fake tensors: its
+    tensor-parallel shard of the weights, its S-slice of every attention
+    cache (built at the local shapes) and its share of the SSM state."""
+    device = device or fake_device()
+    b = shape.global_batch
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        mesh = ctx.Mesh.abstract(sizes, rank=rank, dry=True, device=device)
+        whole = fake_params(cfg, device)
+        n_params = M.param_count(whole)
+        params = steps.serve_params(whole, cfg, mesh)
+        del whole
+        cache, layout = steps.seq_cache(cfg, b, shape.seq_len, mesh,
+                                        device=device)
+        rows = tree.leaves(cache)[0].shape[0]
+        specs = {k: torch.zeros((rows,), dtype=v.dtype, device=device)
+                 for k, v in shp.input_specs(cfg, shape).items()}
+        resident = rules.resident_bytes(params) + rules.resident_bytes(cache)
+        out = _counted(lambda: steps.serve_step(
+            cfg, params, specs["token"], cache, specs["kv_len"], mesh=mesh,
+            layout=layout), params, cache, specs)
+        t = mesh.axis_size(steps.serve_axis(cfg, mesh))
+    seq = layout.seq
+    return dict(out, resident_bytes=resident,
+                cache_bytes=rules.resident_bytes(cache), local_batch=rows,
+                tp=t, replicas=sizes.get("model", 1) // t,
+                seq_axes=list(seq.axes) if seq else [],
+                seq_len_local=seq.length if seq else None,
+                param_count=n_params)
+
+
 def serve_step_dry(cfg: ModelConfig, shape: shp.ShapeSpec, sizes: dict,
                    rank: int = 0, device=None) -> dict:
     """One prefill or decode step of ``shape`` as rank ``rank``: its TP
-    shard of the weights and its slice of the batch, on fake tensors."""
+    shard of the weights and its slice of the batch, on fake tensors; a
+    cell whose batch does not divide the data-parallel axes runs the
+    sequence-sharded step (:func:`seq_serve_step_dry`)."""
+    if seq_sharded(shape, sizes):
+        return seq_serve_step_dry(cfg, shape, sizes, rank, device)
     device = device or fake_device()
     dp = math.prod(s for a, s in sizes.items() if a != "model")
     t = serve_tp(cfg, sizes.get("model", 1))
@@ -261,8 +306,11 @@ def serve_step_dry(cfg: ModelConfig, shape: shp.ShapeSpec, sizes: dict,
                 out = _counted(lambda: steps.serve_step(
                     cfg, params, specs["token"], cache, specs["kv_len"]),
                     params, cache, specs)
+    extra = {} if cache is None else {
+        "cache_bytes": rules.resident_bytes(cache)}
     return dict(out, resident_bytes=resident, local_batch=b, tp=t,
-                replicas=sizes.get("model", 1) // t, param_count=n_params)
+                replicas=sizes.get("model", 1) // t, param_count=n_params,
+                **extra)
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -290,8 +338,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     rec = {"arch": arch, "shape": shape_name,
            "mesh": "2x16x16" if multi_pod else "16x16"}
     ok, reason = shp.applicable(cfg, shape)
-    if ok and shape.name == "long_500k":
-        ok, reason = False, SEQ_SHARDED
     if not ok:
         rec.update(status="skipped", reason=reason)
         if verbose:
@@ -321,7 +367,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                collective_count=cell["collective_count"],
                collectives=cell["collectives"], kernels=cell["kernels"],
                roofline=roof.to_dict())
-    for k in ("tp", "replicas"):
+    for k in ("tp", "replicas", "cache_bytes", "seq_axes",
+              "seq_len_local"):
         if k in cell:
             rec[k] = cell[k]
     if shape.kind == "train":

@@ -14,6 +14,10 @@ version returns a new pool): the engine holds one pool per layer and
 never needs the old one, and in-place writes save a pool copy per step.
 Nothing on the paged path reads a device value on the host, so a step is
 one stream of launches that a CUDA graph can capture.
+
+The one-shot decode also runs over a cache split along S across a mesh
+of ranks (the sequence-sharded serve step, ``sharding.seq``): each rank
+attends over its slice and the ranks' softmax partials are combined.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import linear as sl, quant
 from repro_torch.core.linear import SparsityConfig
-from repro_torch.sharding import tp
+from repro_torch.sharding import seq, tp
 from . import layers
 
 NEG_INF = -1e30
@@ -177,6 +181,15 @@ def _dequant_kv(q, scale, dtype):
     return (q.to(torch.float32) * scale).to(dtype)
 
 
+def _cache_kv(cache, dtype):
+    """A one-shot cache's K and V to attend over: int8 ones dequantized
+    to ``dtype`` by their per-(token, head) scales."""
+    if cache["k"].dtype == torch.int8:
+        return (_dequant_kv(cache["k"], cache["k_scale"], dtype),
+                _dequant_kv(cache["v"], cache["v_scale"], dtype))
+    return cache["k"], cache["v"]
+
+
 def _qkv(params, spec: AttnSpec, x, positions, sp_cfg):
     q = _rope(spec, _split_heads(sl.apply(params["wq"], x, sp_cfg),
                                  spec.num_heads, spec.head_dim), positions)
@@ -199,7 +212,10 @@ def apply(params, spec: AttnSpec, x, positions, sp_cfg: SparsityConfig,
     Under tensor parallelism the heads are this rank's (``spec``): q/k/v
     are column-parallel, their input entering through ``tp.enter`` (in
     training its gradient is summed over the ranks; under sequence
-    parallelism the S-shards are gathered), and ``wo`` is row-parallel."""
+    parallelism the S-shards are gathered), and ``wo`` is row-parallel.
+    Under a sequence shard (``seq.activate``) the decode cache is this
+    rank's S-slice of a cache holding every KV head
+    (:func:`_decode_seq`)."""
     b, s, _ = x.shape
     if cross_kv is not None:
         q = _rope(spec, _split_heads(sl.apply(params["wq"], x, sp_cfg),
@@ -213,8 +229,11 @@ def apply(params, spec: AttnSpec, x, positions, sp_cfg: SparsityConfig,
     x = tp.enter(x)
     b, s, _ = x.shape
     q, k, v = _qkv(params, spec, x, positions, sp_cfg)
+    shard = seq.current()
     if cache is None:
         out = _chunked_sdpa(spec, q, k, v)
+    elif shard is not None:
+        out = _decode_seq(spec, q, k, v, cache, kv_len, shard, x.dtype)
     else:
         pos = kv_len[:1].long()
         if cache["k"].dtype == torch.int8:
@@ -224,14 +243,86 @@ def apply(params, spec: AttnSpec, x, positions, sp_cfg: SparsityConfig,
             cache["v_scale"].index_copy_(1, pos, vs)
         cache["k"].index_copy_(1, pos, k.to(cache["k"].dtype))
         cache["v"].index_copy_(1, pos, v.to(cache["v"].dtype))
-        if cache["k"].dtype == torch.int8:
-            kd = _dequant_kv(cache["k"], cache["k_scale"], x.dtype)
-            vd = _dequant_kv(cache["v"], cache["v_scale"], x.dtype)
-        else:
-            kd, vd = cache["k"], cache["v"]
-        out = _decode_sdpa(spec, q, kd, vd, kv_len + 1)
+        out = _decode_sdpa(spec, q, *_cache_kv(cache, x.dtype), kv_len + 1)
     out = out.reshape(b, s, spec.q_dim)
     return sl.apply(params["wo"], out, sp_cfg, reduce_out=True), cache
+
+
+# ------------------------------------------- the sequence-sharded decode
+def _write_slot(kv_len, shard):
+    """Where this rank writes the new token of a cache split along S:
+    (the local index, whether this rank owns position ``kv_len[0]``), as
+    device tensors; the index is clamped into the slice, where a rank
+    that does not own the position writes back what it holds."""
+    pos = kv_len[:1].long() - shard.offset
+    own = (pos >= 0) & (pos < shard.length)
+    return torch.clamp(pos, 0, shard.length - 1), own
+
+
+def _seq_write(cache, k, v, kv_len, shard):
+    """The new token's K/V (all KV heads, [B, 1, KVH, hd]; int8 caches
+    their per-(token, head) scales too) into the rank that owns position
+    ``kv_len[0]``, at its local index; no other rank changes."""
+    idx, own = _write_slot(kv_len, shard)
+    new = {"k": k, "v": v}
+    if cache["k"].dtype == torch.int8:
+        new["k"], new["k_scale"] = _quant_kv(k)
+        new["v"], new["v_scale"] = _quant_kv(v)
+    for name, val in new.items():
+        leaf = cache[name]
+        keep = leaf.index_select(1, idx)
+        leaf.index_copy_(1, idx, torch.where(own.reshape(1, 1, 1, 1),
+                                             val.to(leaf.dtype), keep))
+
+
+def _decode_partials(spec: AttnSpec, q, k, v, kv_len, offset: int):
+    """One query over this rank's S-slice (positions ``offset`` on) of
+    the cache: ``_decode_sdpa``'s scores and masks, and instead of the
+    softmax the slice's flash-decode partials (max m, sum of exponentials
+    l, p@V) for :func:`seq.combine`.  A masked position's exponential is
+    0, so a slice with no valid position gives l = 0 and p@V = 0 beside
+    m = NEG_INF.  q: [B, 1, H, hd]; k/v: [B, S_local, KVH, hd]."""
+    b, c, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    q5 = (q * hd ** -0.5).reshape(b, c, kvh, h // kvh, hd)
+    scores = _einsum("bqgrd,bkgd->bgrqk", q5, k).to(torch.float32)
+    k_pos = torch.arange(s, dtype=torch.int32, device=q.device)[None] \
+        + offset
+    valid = k_pos < kv_len[:, None]                           # [B, S]
+    if spec.sliding_window is not None:
+        valid &= k_pos >= (kv_len[:, None] - spec.sliding_window)
+    valid = valid[:, None, None, None]
+    scores = torch.where(valid, scores, NEG_INF)
+    m = scores.amax(-1)
+    p = torch.where(valid, torch.exp(scores - m[..., None]), 0.0)
+    acc = _einsum("bgrqk,bkgd->bgrqd", p.to(v.dtype), v).to(torch.float32)
+    return m, p.sum(-1), acc
+
+
+def _decode_seq(spec: AttnSpec, q, k, v, cache, kv_len, shard, dtype):
+    """One decode token over a cache split along S (``seq.current()``):
+    this rank's heads of q and of the new K/V are gathered whole along
+    the tensor-parallel ranks (the cache keeps every KV head), the new
+    K/V written by the rank that owns its position, each rank's partials
+    over its S-slice combined across every S axis, and this rank's heads
+    of the output kept for the row-parallel ``wo``.  JAX's
+    ``_decode_sdpa`` over the whole cache, GSPMD's split of it."""
+    b, c, hl, hd = q.shape
+    kl = k.shape[2]
+    t = tp.size()
+    if t > 1:
+        g = tp.gather(torch.cat([q, k, v], 2), 2).reshape(
+            b, c, t, hl + 2 * kl, hd)
+        q = g[:, :, :, :hl].reshape(b, c, t * hl, hd)
+        k = g[:, :, :, hl:hl + kl].reshape(b, c, t * kl, hd)
+        v = g[:, :, :, hl + kl:].reshape(b, c, t * kl, hd)
+    _seq_write(cache, k, v, kv_len, shard)
+    m, l, acc = _decode_partials(spec, q, *_cache_kv(cache, dtype),
+                                 kv_len + 1, shard.offset)
+    out = seq.combine(m, l, acc, shard)          # [B, KVH, rep, 1, hd]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, c, t * hl, hd).to(q.dtype)
+    r = tp.rank() if t > 1 else 0
+    return out[:, :, r * hl:(r + 1) * hl]
 
 
 def make_cache(spec: AttnSpec, batch: int, max_len: int,

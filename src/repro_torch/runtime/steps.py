@@ -34,6 +34,14 @@ same).  In the step:
 - AdamW updates the pieces (``adamw.update`` given the layout).
 An encoder-decoder runs at t = 1: every rank gathers each leaf whole and
 computes its batch slice (ROADMAP C).
+
+``serve_step`` given a mesh runs the sequence-sharded serve step, the
+port's form of JAX's decode under ``rules.cache_spec`` (the long_500k
+cells: a batch of 1 over a cache split along S over every axis): each
+rank holds its S-slice of every attention cache (:func:`seq_cache`) and
+its tensor-parallel shard of the weights (:func:`serve_params`), runs its
+heads under ``tp`` over the ``model`` axis and attends over its S-slice
+under ``sharding.seq``; :func:`decode` is a greedy loop over it.
 """
 from __future__ import annotations
 
@@ -48,7 +56,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.models import transformer
 from repro_torch.optim import adamw, schedule
-from repro_torch.sharding import rules, tp
+from repro_torch.sharding import rules, seq, tp
 
 
 def trainable(params) -> list[torch.Tensor]:
@@ -266,8 +274,87 @@ def prefill_step(cfg: ModelConfig, max_len: int, params, batch):
                      extra_embeds=M._extra_embeds(cfg, batch))
 
 
-def serve_step(cfg: ModelConfig, params, token, cache, kv_len):
-    return M.serve_step(params, cfg, token, cache, kv_len)
+# ---------------------------------------- the sequence-sharded serve step
+def serve_axis(cfg: ModelConfig, mesh) -> str:
+    """The axis the sequence-sharded serve step's tensor parallelism runs
+    over: blocks of t ranks of ``model``, t its largest divisor that
+    ``tp.validate`` accepts (the dry run's ``serve_tp``; the axis' other
+    ranks are replicas).  Every rank of the mesh calls it."""
+    if getattr(cfg, "is_encoder_decoder", False):
+        raise ValueError(f"{cfg.name}: the sequence-sharded serve step "
+                         "covers decoder-only stacks")
+    return mesh.split("model", tp.degree(cfg, mesh.axis_size("model")))
+
+
+def serve_params(params, cfg: ModelConfig, mesh):
+    """This rank's tensor-parallel shard of a whole (packed) parameter
+    tree for the sequence-sharded serve step (``tp.shard_params``)."""
+    axis = serve_axis(cfg, mesh)
+    return tp.shard_params(params, cfg, mesh.coord(axis),
+                           mesh.axis_size(axis))
+
+
+def seq_cache(cfg: ModelConfig, batch: int, max_len: int, mesh,
+              device=None):
+    """(this rank's zeroed piece of the one-shot cache, its
+    ``rules.CacheLayout``) for a batch of ``batch`` rows and ``max_len``
+    positions, built at the local shapes (no rank holds the whole
+    cache).  Attention caches split as ``rules.cache_spec`` says, SSM
+    state by the step's tensor parallelism (:func:`serve_axis`)."""
+    axis = serve_axis(cfg, mesh)
+    whole = M.make_cache(cfg, batch, max_len, device="meta")
+    layout = rules.serve_cache_layout(
+        whole, mesh, axis if mesh.axis_size(axis) > 1 else None)
+    return rules.local_cache(whole, layout,
+                             mesh.device if device is None else device), \
+        layout
+
+
+@contextlib.contextmanager
+def serving(cfg: ModelConfig, mesh, layout):
+    """The dynamic extent of one rank's share of the sequence-sharded
+    serve step: tensor parallelism over :func:`serve_axis` of ``mesh``,
+    and the cache's S-slice (``layout.seq``) for the attention layers."""
+    with tp.activate(mesh=mesh, axis=serve_axis(cfg, mesh)), \
+            seq.activate(layout.seq):
+        yield
+
+
+def serve_step(cfg: ModelConfig, params, token, cache, kv_len, mesh=None,
+               layout=None):
+    """One decode token: (logits [B, V], cache, kv_len + 1).  With
+    ``mesh`` (a ``sharding.ctx.Mesh``; every rank calls the step) this is
+    the sequence-sharded step: ``params`` this rank's shard
+    (:func:`serve_params`), ``cache`` its piece and ``layout`` that
+    piece's layout (:func:`seq_cache`), ``token`` / ``kv_len`` its rows
+    of the batch; the logits come back whole on every rank."""
+    if mesh is None:
+        return M.serve_step(params, cfg, token, cache, kv_len)
+    if layout is None:
+        raise ValueError("a serve step over a mesh needs the cache's "
+                         "layout (steps.seq_cache)")
+    with serving(cfg, mesh, layout):
+        logits, cache, kv_len = M.serve_step(params, cfg, token, cache,
+                                             kv_len)
+        return tp.gather_last(logits), cache, kv_len
+
+
+@torch.no_grad()
+def decode(cfg: ModelConfig, params, token, cache, kv_len, n: int,
+           mesh=None, layout=None):
+    """Greedy-decode ``n`` tokens from a given cache, the first fed
+    ``token`` [B] at ``kv_len`` [B], each step :func:`serve_step` (over
+    ``mesh``, its sequence-sharded one): (tokens [B, n] int32, the whole
+    logits [B, n, V] of each step, cache, kv_len + n).  The ids are the
+    logits' argmax, ties to the lowest index as ``jnp.argmax``."""
+    toks, outs = [], []
+    for _ in range(n):
+        lg, cache, kv_len = serve_step(cfg, params, token, cache, kv_len,
+                                       mesh, layout)
+        token = torch.argmax(lg, -1).to(torch.int32)
+        toks.append(token)
+        outs.append(lg)
+    return torch.stack(toks, 1), torch.stack(outs, 1), cache, kv_len
 
 
 def bind(fn, *static):

@@ -32,12 +32,14 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.sharding.ctx import Mesh
+from repro_torch.sharding.seq import SeqShard
 
 REPLICATED_NAMES = {"g", "A_log", "dt_bias", "D", "s_w", "_k"}
 
 
 def _axis(mesh: Mesh, name: str) -> int:
-    return mesh.shape.get(name, 1)
+    # an axis of the mesh or a block axis of ``Mesh.split``
+    return mesh.axis_size(name)
 
 
 def _dp_axes(mesh: Mesh):
@@ -372,6 +374,70 @@ def gather(tree, specs: list, mesh: Mesh):
         raise ValueError(f"{len(specs)} specs for {len(leaves)} leaves")
     return tree_util.unflatten(tree, [
         gather_leaf(x.detach(), s, mesh) for x, s in zip(leaves, specs)])
+
+
+# ------------------------------------------- the sequence-sharded cache
+ATTN_CACHE = ("k", "v", "k_scale", "v_scale")
+# an SSM state leaf -> its per-head / per-feature dim (unit dim dropped)
+SSM_CACHE_DIM = {"conv": 2, "ssd": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheLayout:
+    """How a one-shot decoder cache (``transformer.make_cache``'s list of
+    unit dicts) lies on a mesh in the sequence-sharded serve step: one
+    spec per leaf (``tree.leaves`` order), and this rank's S offset and
+    length, which every attention leaf shares, as a
+    :class:`~repro_torch.sharding.seq.SeqShard` (None where no leaf has
+    an S)."""
+    mesh: Mesh
+    specs: list
+    seq: SeqShard | None
+
+
+def serve_cache_layout(cache, mesh: Mesh, tp_axis: str | None = None
+                       ) -> CacheLayout:
+    """The layout of a whole (or meta) one-shot cache: each attention
+    leaf by :func:`cache_spec` (B over the data-parallel axes when it
+    divides, else S over them and ``model``; KVH whole), each SSM state
+    leaf with B as :func:`cache_spec` puts it and its heads / d_inner
+    cut as the serving tensor parallelism cuts them, over ``tp_axis``
+    (``model`` or a block axis of ``Mesh.split``; None: whole)."""
+    specs, seqs = [], set()
+    for names, shape, stacked in stacked_leaves(cache):
+        spec = _unstack(cache_spec(names, shape, mesh), stacked, names)
+        nd = len(shape) - stacked
+        if names[-1] in SSM_CACHE_DIM:
+            spec = (list(spec) + [None] * nd)[:nd]
+            spec[SSM_CACHE_DIM[names[-1]]] = tp_axis
+            spec = _canon(spec)
+        specs.append(spec)
+        if names[-1] in ATTN_CACHE:
+            s = shape[1 + stacked]
+            n = math.prod(_axis(mesh, a) for a in axes_of(spec[1]))
+            seqs.add((axes_of(spec[1]), offset(spec, 1, s, mesh), s // n))
+    if len(seqs) > 1:
+        raise ValueError(f"the attention caches split S differently: {seqs}")
+    seq = SeqShard(mesh, *seqs.pop()) if seqs else None
+    return CacheLayout(mesh, specs, seq)
+
+
+def cut_cache(cache, mesh: Mesh, tp_axis: str | None = None):
+    """This rank's piece of a whole one-shot cache and its
+    :class:`CacheLayout` (:func:`serve_cache_layout`): each leaf a fresh
+    contiguous tensor on ``mesh.device``."""
+    layout = serve_cache_layout(cache, mesh, tp_axis)
+    return shard(cache, layout.specs, mesh), layout
+
+
+def local_cache(whole_meta, layout: CacheLayout, device):
+    """A rank's zeroed piece of the cache ``whole_meta`` describes (its
+    meta tensors give shapes and dtypes), built at the local shapes: no
+    rank holds the whole cache."""
+    return tree_util.unflatten(whole_meta, [
+        torch.zeros(local_shape(x.shape, s, layout.mesh), dtype=x.dtype,
+                    device=device)
+        for x, s in zip(tree_util.leaves(whole_meta), layout.specs)])
 
 
 def resident_bytes(tree) -> int:

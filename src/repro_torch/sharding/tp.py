@@ -36,7 +36,8 @@ runs the same kernels as a single-device engine on its local shapes.
 * :func:`rmsnorm`: RMSNorm over a feature axis sharded across the ranks
   (the SSM's gated norm over d_inner): the sum of squares is all-reduced.
 * :func:`argmax_tokens`: greedy ids from vocab-sharded logits, the lowest
-  global index winning ties, replicated on every rank.
+  global index winning ties, replicated on every rank; :func:`gather`
+  and :func:`gather_last`: a sharded tensor made whole on every rank.
 * :func:`degree`: the split degree of a config over an axis of ``n``
   ranks, the largest divisor of ``n`` that :func:`validate` accepts.
 
@@ -236,6 +237,8 @@ def _all_reduce(x: torch.Tensor, op, ctx: TPContext) -> torch.Tensor:
 
 
 def _all_gather(x: torch.Tensor, ctx: TPContext) -> list[torch.Tensor]:
+    if ctx.mesh is not None:
+        return list(ctx.mesh.all_gather(x[None], ctx.axis, 0).unbind(0))
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(ctx.size)]
     if not ctx.dry:
@@ -409,10 +412,17 @@ def reduce_max(x: torch.Tensor) -> torch.Tensor:
 def gather_last(x: torch.Tensor) -> torch.Tensor:
     """The whole of a tensor sharded on its last dim (vocab-sharded
     logits), on every rank; the identity without an active context."""
-    ctx = current()
-    if ctx is None or ctx.size == 1:
+    return gather(x, -1)
+
+
+def gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (the
+    heads of a head-sharded tensor, whole); the identity without an
+    active context."""
+    ctx = _active()
+    if ctx is None:
         return x
-    return torch.cat(_all_gather(x, ctx), dim=-1)
+    return torch.cat(_all_gather(x, ctx), dim=dim)
 
 
 def argmax_tokens(logits: torch.Tensor) -> torch.Tensor:

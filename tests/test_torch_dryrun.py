@@ -226,27 +226,48 @@ batch = {"tokens": torch.zeros((b // 2, s), dtype=torch.int32),
          "labels": torch.zeros((b // 2, s), dtype=torch.int32)}
 ctx.reset_counts()
 steps.train_step(cfg, opt, params, state, batch, layout=lay)
-json.dump({"count": ctx.collective_count(), "wire": ctx.wire_bytes(),
-           "kinds": ctx.collectives_by_kind(),
-           "resident": rules.resident_bytes(params)
-           + rules.resident_bytes(state)},
-          open(f"{root}/r{rank}.json", "w"))
+train = {"count": ctx.collective_count(), "wire": ctx.wire_bytes(),
+         "kinds": ctx.collectives_by_kind(),
+         "resident": rules.resident_bytes(params)
+         + rules.resident_bytes(state)}
+# one sequence-sharded decode step at batch 1, S = 64 over (data, model)
+scfg = registry.smoke_config("h2o-danube-3-4b")
+sparams = steps.serve_params(TM.init(scfg, torch.Generator().manual_seed(0)),
+                             scfg, mesh)
+cache, lay = steps.seq_cache(scfg, 1, 64, mesh, device="cpu")
+ctx.reset_counts()
+steps.serve_step(scfg, sparams, torch.zeros((1,), dtype=torch.int32), cache,
+                 torch.full((1,), 40, dtype=torch.int32), mesh=mesh,
+                 layout=lay)
+serve = {"count": ctx.collective_count(), "wire": ctx.wire_bytes(),
+         "kinds": ctx.collectives_by_kind(),
+         "resident": rules.resident_bytes(sparams)
+         + rules.resident_bytes(cache)}
+json.dump({"train": train, "serve": serve}, open(f"{root}/r{rank}.json", "w"))
 '''
 
 
-def test_dry_mesh_counts_equal_a_real_gloo_run():
-    """A masked 6:8 smoke step with int8 moments over (data 2, model 2):
-    each of four real gloo ranks' collective count, bytes handed to the
-    collectives, per-kind tallies and resident bytes equal the dry run's
-    as that rank."""
+@pytest.fixture(scope="module")
+def real_ranks():
+    """Four real gloo ranks over (data 2, model 2): each one's counts of
+    a masked 6:8 smoke train step and of a sequence-sharded smoke decode
+    step."""
     import json
     from repro_torch.sharding import dist as tdist
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "OMP_NUM_THREADS": "1"}
     with tempfile.TemporaryDirectory() as root:
         tdist.launch([sys.executable, "-c", RANK, root], 4, env=env,
-                     cwd=ROOT, timeout=120)
-        real = [json.load(open(f"{root}/r{r}.json")) for r in range(4)]
+                      cwd=ROOT, timeout=120)
+        return [json.load(open(f"{root}/r{r}.json")) for r in range(4)]
+
+
+def test_dry_mesh_counts_equal_a_real_gloo_run(real_ranks):
+    """A masked 6:8 smoke step with int8 moments over (data 2, model 2):
+    each of four real gloo ranks' collective count, bytes handed to the
+    collectives, per-kind tallies and resident bytes equal the dry run's
+    as that rank."""
+    real = [r["train"] for r in real_ranks]
     cfg = dataclasses.replace(
         treg.smoke_config("h2o-danube-3-4b"),
         sparsity=tlin.SparsityConfig(pattern=(6, 8), mode="masked"))
@@ -258,6 +279,44 @@ def test_dry_mesh_counts_equal_a_real_gloo_run():
         assert dry["wire_bytes"] == real[r]["wire"]
         assert dry["collectives"] == real[r]["kinds"]
         assert dry["resident_bytes"] == real[r]["resident"]
+
+
+def test_dry_mesh_counts_equal_a_real_gloo_serve_step(real_ranks):
+    """The sequence-sharded decode step (danube smoke, batch 1, S = 64
+    over (data 2, model 2)): each real rank's collective count, bytes,
+    per-kind tallies and resident bytes (weight shard + cache piece)
+    equal the dry run's as that rank."""
+    cfg = treg.smoke_config("h2o-danube-3-4b")
+    spec = tshp.ShapeSpec("long", 64, 1, "decode")
+    sizes = {"data": 2, "model": 2}
+    assert dryrun.seq_sharded(spec, sizes)
+    for r in range(4):
+        real = real_ranks[r]["serve"]
+        dry = dryrun.serve_step_dry(cfg, spec, sizes, rank=r, device="cpu")
+        assert dry["seq_axes"] == ["data", "model"]
+        assert dry["seq_len_local"] == 16 and dry["tp"] == 2
+        assert dry["collective_count"] == real["count"] > 0
+        assert dry["wire_bytes"] == real["wire"]
+        assert dry["collectives"] == real["kinds"]
+        assert dry["resident_bytes"] == real["resident"]
+
+
+def test_long_500k_cache_a_rank_is_the_whole_over_256():
+    """danube ``long_500k`` on 16x16: the cell runs the sequence-sharded
+    step, and a rank's attention cache is the whole bf16 cache (24
+    layers, 8 KV heads of 120, S = 524288, K and V) over 256 ranks: S
+    over (data, model), 2048 positions a rank."""
+    rec = dryrun.run_cell("h2o-danube-3-4b", "long_500k", False,
+                          verbose=False)
+    cfg = treg.get("h2o-danube-3-4b")
+    whole = (cfg.num_layers * 2 * 524288 * cfg.num_kv_heads
+             * cfg.resolved_head_dim * 2)
+    assert rec["status"] == "ok", rec
+    assert rec["cache_bytes"] * 256 == whole
+    assert rec["seq_axes"] == ["data", "model"]
+    assert rec["seq_len_local"] == 2048 and rec["local_batch"] == 1
+    assert rec["tp"] == 8 and rec["fits"]
+    assert rec["resident_bytes"] > rec["cache_bytes"]
 
 
 def test_split_halves_a_rank_s_flops_at_model_2():
@@ -330,22 +389,38 @@ def test_kernels_on_fake_tensors_record_their_cost():
     ops.reset_dry_costs()
 
 
-def test_serving_tp_degree_and_skips():
+def test_serving_tp_degree_and_skips(monkeypatch):
     """The serving TP degree is the model axis' largest divisor the
-    config divides into; long_500k is skipped naming the ROADMAP item,
-    full attention stacks with JAX's reason."""
+    config divides into; every sub-quadratic arch's long_500k cell runs
+    (reaches the serve step: none is skipped), full attention stacks
+    are skipped with JAX's reason."""
     assert dryrun.serve_tp(treg.get("h2o-danube-3-4b"), 16) == 8
     assert dryrun.serve_tp(treg.get("phi3-medium-14b"), 16) == 2
     assert dryrun.serve_tp(treg.get("whisper-small"), 16) == 1
-    rec = dryrun.run_cell("h2o-danube-3-4b", "long_500k", False,
-                          verbose=False)
-    assert rec["status"] == "skipped" and "ROADMAP A.3" in rec["reason"]
-    rec = dryrun.run_cell("phi3-medium-14b", "long_500k", True,
-                          verbose=False)
-    assert rec == {"arch": "phi3-medium-14b", "shape": "long_500k",
-                   "mesh": "2x16x16", "status": "skipped",
-                   "reason": jshp.applicable(jreg.get("phi3-medium-14b"),
-                                             jshp.SHAPES["long_500k"])[1]}
+    assert not hasattr(dryrun, "SEQ_SHARDED")
+
+    class Ran(Exception):
+        pass
+
+    def reached(*a, **k):
+        raise Ran
+
+    monkeypatch.setattr(dryrun, "serve_step_dry", reached)
+    ran = []
+    for arch in ARCHS:
+        jok, jreason = jshp.applicable(jreg.get(arch),
+                                       jshp.SHAPES["long_500k"])
+        try:
+            rec = dryrun.run_cell(arch, "long_500k", True, verbose=False)
+        except Ran:
+            ran.append(arch)
+            continue
+        assert not jok and rec == {
+            "arch": arch, "shape": "long_500k", "mesh": "2x16x16",
+            "status": "skipped", "reason": jreason}
+    assert sorted(ran) == sorted(a for a in ARCHS
+                                 if jreg.get(a).sub_quadratic)
+    assert len(ran) == 5
 
 
 def test_roofline_terms_from_counts():
