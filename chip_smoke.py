@@ -151,8 +151,9 @@ Phases (any failed check exits nonzero):
    3840 x 1920 and w_down 3840 x 5120 at R 1, 4, 128) bit-equal to its
    plain version and, given the rows' own absmax, to B3 without it, B2
    at H = 16 over KVH = 4; then two gloo ranks sharing the card
-   (``tp_rank``), each drawing phase 4's seeded weights once and keeping
-   its shards, serve phase 5's traffic eager at tp = 2, compressed and
+   (``tp_rank``), each loading phases 4 and 5's packings of the seeded
+   weights (written once by the parent, ``_tp_save``) and keeping its
+   shards, serve phase 5's traffic eager at tp = 2, compressed and
    slided: the ranks' streams identical and equal to phases 4 and 5's
    tp = 1 eager streams (or each divergence a tie within rounding at the
    tp = 1 logits), the last-prefill logits within TP_RL2 of tp = 1's
@@ -253,11 +254,23 @@ Phases (any failed check exits nonzero):
    ms a step, collectives a step, each rank's ``max_memory_allocated``;
    the phase within PHASE15_S seconds (``seq_witness``, not a phase,
    splits its logit gap between its sources);
-16. a ``kernels`` JSON line (the five kernels, launches of the
+16. the sliding-window tile skip (``AttnSpec.tile_skip``, ROADMAP A.5):
+   h2o-danube-3-4b at full width (window 4096), SKIP_LAYERS layers, 6:8
+   compressed int8 (B1 runs every linear); the one-shot prefill of SKIP_S
+   tokens at batch 1 with the skip off and on in turns: the last-token
+   logits and every layer's attention output bit-equal, the KV chunk
+   pairs visited (16 x 16 without the skip, 16 x 6 with it), B1
+   launched; the attention alone at layer 0's shapes timed off and on;
+   a paged prefill chunk of PREFILL_CHUNK rows at the int32 device
+   offset SKIP_START through ``pool_attend`` (the gather path) bit-equal
+   skip on and off under ``set_sync_debug_mode("error")``, and two
+   planted faults caught there (a window one chunk short; JAX's first
+   chunk, placed without the offset); the phase within PHASE16_S;
+17. a ``kernels`` JSON line (the five kernels, launches of the
    h2o-danube-3-4b runs, and B3's act_absmax instance with the launches
    of phase 11's slided run; phase 12's zero launches; phase 14's
-   quickstart launches; phase 15's rank 0 launches), the card line, and
-   the final result line.
+   quickstart launches; phase 15's rank 0 launches; phase 16's
+   launches), the card line, and the final result line.
 
 It imports neither JAX nor the JAX package, and prints every table it
 measures on standard output.
@@ -1129,14 +1142,12 @@ def _linear_bytes(params):
         t.numel() * t.element_size() for t in params["lm_head"].values())
 
 
-def _engine_setup(torch, mode, recipe="int8", dtype=None, num_layers=None,
-                  keep_raw=False):
+def _engine_setup(torch, mode, recipe="int8", dtype=None, num_layers=None):
     """h2o-danube-3-4b at full width, 6:8 in ``mode``, fused attention,
     packed from the seed-0 init (bf16 activations and KV pages as
     registered, or ``dtype`` for both; the registered 24 layers, or
     ``num_layers``); the 4 staggered prompts drawn from the same
-    generator.  Returns (cfg, params, prompts, ecfg), and with ``keep_raw``
-    the unpacked draw fifth."""
+    generator.  Returns (cfg, params, prompts, ecfg)."""
     import dataclasses
     from repro_torch.configs import registry
     from repro_torch.core.linear import SparsityConfig
@@ -1154,10 +1165,7 @@ def _engine_setup(torch, mode, recipe="int8", dtype=None, num_layers=None,
                                 fused_attention=True))
     t0 = time.time()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    raw = M.init(cfg, gen)
-    params = serve_loop.pack_params(raw, cfg)
-    if not keep_raw:
-        del raw
+    params = serve_loop.pack_params(M.init(cfg, gen), cfg)
     torch.cuda.synchronize()
     packed = _linear_bytes(params)
     log(f"init + pack: {time.time() - t0:.1f} s; {cfg.num_layers} layers, "
@@ -1168,8 +1176,6 @@ def _engine_setup(torch, mode, recipe="int8", dtype=None, num_layers=None,
     ecfg = serve_loop.EngineConfig(max_batch=4, page_size=16, num_pages=128,
                                    max_seq_len=max(PLENS) + NEW_TOKENS,
                                    prefill_chunk=PREFILL_CHUNK)
-    if keep_raw:
-        return cfg, params, prompts, ecfg, raw
     return cfg, params, prompts, ecfg
 
 
@@ -3475,11 +3481,12 @@ def _tp_kernels(torch, timer):
     return {"B2": b2, **err, "B3_act_absmax": e_aa, "row": row}
 
 
-def tp_rank(root: str) -> int:
+def tp_rank(root: str, packs: str) -> int:
     """One rank of phase 11 (``phase_tp`` starts two, both on cuda:0, over
-    gloo).  Phase 4's seeded full-width, full-depth weights drawn once,
-    packed compressed and slided, each packing handed to
-    ``ServeEngine(tp=2)``, which keeps this rank's shard.  Per mode:
+    gloo).  Phase 4's seeded full-width, full-depth weights as phases 4
+    and 5 packed them, compressed and slided, loaded from ``packs``
+    (``_tp_save``), each packing handed to ``ServeEngine(tp=2)``, which
+    keeps this rank's shard.  Per mode:
     phase 5's traffic served eager with every kernel count and the
     collective count set to 0 just before ``run()``; the last-prefill
     logits and each decode step's logits (gathered); then, on the
@@ -3489,7 +3496,6 @@ def tp_rank(root: str) -> int:
     import gc
     import torch
     from repro_torch.core import linear as sl
-    from repro_torch.core.linear import SparsityConfig
     from repro_torch.kernels import fused_slide_matmul as fsm
     from repro_torch.runtime import serve_loop
     from repro_torch.sharding import dist as tdist, tp as tpmod
@@ -3497,23 +3503,18 @@ def tp_rank(root: str) -> int:
     rank, world = tdist.init("gloo")
     tdist.device_for(None)
     counters = _counters()
-    # one draw packed both ways, each packing handed to its engine
     t0 = time.time()
-    cfg, params, prompts, ecfg, raw = _engine_setup(torch, "compressed",
-                                                    keep_raw=True)
-    cfgs = {"compressed": cfg, "slided": dataclasses.replace(
-        cfg, sparsity=SparsityConfig(pattern=(6, 8), mode="slided",
-                                     recipe="int8", fused_attention=True))}
-    ecfg = dataclasses.replace(ecfg, tp=world)
+    traffic = torch.load(f"{packs}/traffic.pt", weights_only=False)
+    prompts = traffic["prompts"]
+    ecfg = dataclasses.replace(traffic["ecfg"], tp=world)
     engines, sizes = {}, {}
-    for mode, cfg in cfgs.items():
-        if params is None:
-            params = serve_loop.pack_params(raw, cfg)
-        sizes[mode] = _linear_bytes(params)
-        engines[mode] = serve_loop.ServeEngine(params, cfg, ecfg,
-                                               device="cuda")
-        params = None
-    del raw
+    for mode in ("compressed", "slided"):
+        pack = torch.load(f"{packs}/{mode}.pt", map_location="cuda",
+                          weights_only=False)
+        sizes[mode] = _linear_bytes(pack["params"])
+        engines[mode] = serve_loop.ServeEngine(pack["params"], pack["cfg"],
+                                               ecfg, device="cuda")
+        del pack
     gc.collect()
     torch.cuda.empty_cache()
     mem = torch.cuda.memory_allocated()
@@ -3773,11 +3774,30 @@ def _tp_gates(torch, card, ref, ranks, kern):
     return out
 
 
-def phase_tp(torch, card, ref, timer):
+def _tp_save(torch, packs, prompts, ecfg) -> str:
+    """Phases 4 and 5's packings (the seed-0 weights, compressed and
+    slided), the prompts and the engine config, written for phase 11's
+    ranks, which load them in place of drawing and packing their own:
+    the directory (removed after phase 11, or at exit)."""
+    import atexit
+    import tempfile
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    atexit.register(shutil.rmtree, root, True)
+    for mode, (cfg, params) in packs.items():
+        torch.save({"cfg": cfg, "params": params}, f"{root}/{mode}.pt")
+    torch.save({"prompts": prompts, "ecfg": ecfg}, f"{root}/traffic.pt")
+    log(f"phase 11's packings written for its ranks: "
+        f"{time.time() - t0:.1f} s")
+    return root
+
+
+def phase_tp(torch, card, ref, timer, packs):
     """Phase 11: tensor-parallel serving on the card.  The kernels at the
     shard shapes (``_tp_kernels``); then two gloo ranks sharing cuda:0
     (``tp_rank``) serve phase 5's traffic with phase 4's weights at
-    tp = 2, compressed and slided, eager; their streams must agree, equal
+    tp = 2, compressed and slided, eager (loading the packings ``packs``
+    that ``_tp_save`` wrote); their streams must agree, equal
     phases 4 and 5's tp = 1 eager streams (or diverge only at a tie), and
     their last-prefill logits pass TP_RL2 against tp = 1's beside two
     planted faults that must not; B1 (compressed), B3 with its act_absmax
@@ -3799,10 +3819,13 @@ def phase_tp(torch, card, ref, timer):
         f"device memory here {torch.cuda.memory_allocated() / 1e9:.2f} GB ==")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     with tempfile.TemporaryDirectory() as root:
-        texts = tdist.launch(
-            [sys.executable, "-c", "import sys, chip_smoke; "
-             "sys.exit(chip_smoke.tp_rank(sys.argv[1]))", root], TP,
-            env=env, cwd=ROOT, timeout=TP_TIMEOUT)
+        try:
+            texts = tdist.launch(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.tp_rank(sys.argv[1], sys.argv[2]))",
+                 root, packs], TP, env=env, cwd=ROOT, timeout=TP_TIMEOUT)
+        finally:
+            shutil.rmtree(packs, ignore_errors=True)
         for r, text in enumerate(texts):
             for line in text.splitlines():
                 log(f"  [rank {r}] {line}")
@@ -5499,6 +5522,269 @@ def phase_seq_serve(torch, card, setup=None):
     return out
 
 
+# ---------------------------------------------------------------- phase 16
+# h2o-danube-3-4b at full width (window 4096), SKIP_LAYERS layers, 6:8
+# compressed int8: the one-shot prefill of SKIP_S tokens at batch 1 (16
+# query chunks of 1024, each visiting 6 of 16 KV chunks with the skip:
+# n_win = (4096 + 1024 + 1023) // 1024 + 1), then a paged prefill chunk of
+# PREFILL_CHUNK rows at SKIP_START: its key range (SKIP_START - 4095 ..
+# SKIP_START + 127) spans 6 KV chunks of 1024, all that n_win holds, so
+# a window one chunk short, or one placed as JAX places it (from the
+# chunk's index alone, without its offset), reads the wrong keys.  At the
+# one-shot prefill the offset is 0 and the chunks aligned: neither fault
+# shows there.
+SKIP_LAYERS = 2
+SKIP_S = 16384
+SKIP_START = 8192 + 912        # a page boundary, 912 = 57 pages of 16
+PHASE16_S = 45                 # the phase's budget on the card
+
+
+def _skip_plants(attention):
+    """The planted faults of the window: one chunk short, and JAX's first
+    chunk (``q_offset`` dropped)."""
+    sound = attention._kv_window
+
+    def short(spec, q_offset, qi, cq, ck, nk):
+        _, n = sound(spec, q_offset, qi, cq, ck, nk)
+        # the sound placement, clamped for a window of n - 1 chunks
+        start = (q_offset + qi * cq - spec.sliding_window + 1) // ck
+        if isinstance(start, int):
+            return min(max(start, 0), nk - n + 1), n - 1
+        return start.clamp(0, nk - n + 1), n - 1
+
+    def jax_first(spec, q_offset, qi, cq, ck, nk):
+        return sound(spec, 0, qi, cq, ck, nk)
+
+    return {"n_win - 1": short, "first without q_offset": jax_first}
+
+
+def _skip_setup(torch, setup):
+    """(cfg, params, tokens): danube at full width, SKIP_LAYERS layers,
+    6:8 compressed int8, the seed-0 draw packed, and SKIP_S seeded tokens;
+    for a rehearsal on the CPU (``setup["smoke"]``) the smoke width
+    (window 16) at S = 4096 (4 KV chunks, 3 with the skip)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.core.linear import SparsityConfig
+    from repro_torch.models import model as M
+    from repro_torch.runtime import serve_loop
+    arch = "h2o-danube-3-4b"
+    dev = torch.device(setup["device"])
+    if setup.get("smoke"):
+        base, s = registry.smoke_config(arch), 4096
+    else:
+        base, s = registry.get(arch), SKIP_S
+    cfg = dataclasses.replace(
+        base, num_layers=SKIP_LAYERS, sparsity=SparsityConfig(
+            pattern=(6, 8), mode="compressed", recipe="int8"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = serve_loop.pack_params(M.init(cfg, gen), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen,
+                           device=dev)
+    return cfg, params, tokens
+
+
+def _skip_prefill(torch, cfg, params, tokens, counters):
+    """The one-shot prefill with the skip off, on, off, on: the
+    last-token logits, each attention call's output (``_chunked_sdpa``
+    watched) and the KV chunk pairs it visited (one ``_mask_tile`` each),
+    every kernel count set to 0 just before the runs and read after."""
+    import dataclasses
+    from repro_torch.models import attention, model as M
+    sdpa, tile = attention._chunked_sdpa, attention._mask_tile
+    runs = {False: [], True: []}
+    seen = {"outs": [], "pairs": [0]}
+
+    def watched_sdpa(*a, **k):
+        seen["pairs"].append(0)
+        out = sdpa(*a, **k)
+        seen["outs"].append(out)
+        return out
+
+    def counted_tile(*a):
+        seen["pairs"][-1] += 1
+        return tile(*a)
+
+    for mod in counters.values():
+        mod.reset_counts()
+    attention._chunked_sdpa, attention._mask_tile = watched_sdpa, \
+        counted_tile
+    try:
+        for skip in (False, True, False, True):
+            seen["outs"], seen["pairs"] = [], []
+            c = dataclasses.replace(cfg, swa_tile_skip=skip)
+            with torch.no_grad():
+                logits, _, _ = M.prefill(params, c, tokens)
+            runs[skip].append({"logits": logits, "outs": seen["outs"],
+                               "pairs": seen["pairs"]})
+    finally:
+        attention._chunked_sdpa, attention._mask_tile = sdpa, tile
+    launches = {n: m.launch_count() for n, m in counters.items()}
+    return runs, launches
+
+
+def _skip_paged(torch, cfg, dev):
+    """A paged prefill chunk through ``pool_attend`` (the gather path,
+    ``fused_attention`` off) at the int32 device offset SKIP_START:
+    PREFILL_CHUNK seeded bf16 queries against a page pool (page 16) that
+    holds SKIP_START + PREFILL_CHUNK seeded keys, its table in a seeded
+    order.  The skip off, then on (dispatched under
+    ``set_sync_debug_mode("error")`` on the card: no host sync), then on
+    under each planted fault; the outputs."""
+    import dataclasses
+    from repro_torch.core.linear import SparsityConfig
+    from repro_torch.models import attention, transformer
+    spec = transformer.attn_spec(cfg, "swa")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    n = SKIP_START + PREFILL_CHUNK
+    pages = -(-n // 16)
+    pool = attention.make_paged_pool(spec, pages, 16, torch.bfloat16, dev)
+    for name in ("k", "v"):
+        pool[name].copy_(torch.randn(pool[name].shape, generator=gen,
+                                     device=dev))
+    table = torch.randperm(pages, generator=gen, device=dev).to(
+        torch.int32)[None]
+    q = torch.randn((1, PREFILL_CHUNK, spec.num_heads, spec.head_dim),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    start = torch.tensor(SKIP_START, dtype=torch.int32, device=dev)
+    kv_len = (start + 1).reshape(1)
+    sp = SparsityConfig(fused_attention=False)
+
+    def call(skip):
+        return attention.pool_attend(
+            dataclasses.replace(spec, tile_skip=skip), q, pool, table,
+            kv_len, sp, chunk_start=start)
+
+    out = {"off": call(False)}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        out["on"] = call(True)
+    finally:
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+    sound = attention._kv_window
+    for name, plant in _skip_plants(attention).items():
+        attention._kv_window = plant
+        try:
+            out[name] = call(True)
+        finally:
+            attention._kv_window = sound
+    return out
+
+
+def _skip_attention(torch, cfg, dev, timer, s):
+    """The one-shot attention alone at layer 0's shapes (seeded bf16 q
+    [1, s, 32, 120], k/v [1, s, 8, 120]): skip off and on timed in turns
+    (device ms, each call after an L2 flush; only with a ``timer``), and
+    the skip under each planted fault against the full scan."""
+    import dataclasses
+    from repro_torch.models import attention, transformer
+    spec = transformer.attn_spec(cfg, "swa")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    q = torch.randn((1, s, spec.num_heads, spec.head_dim), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((1, s, spec.num_kv_heads, spec.head_dim),
+                        generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    off, on = (dataclasses.replace(spec, tile_skip=x) for x in (False, True))
+    full = attention._chunked_sdpa(off, q, k, v)
+    out = {"ms": None}
+    if timer is not None:
+        out["ms"] = timer.rounds(
+            [lambda: attention._chunked_sdpa(off, q, k, v),
+             lambda: attention._chunked_sdpa(on, q, k, v)], iters=3)
+    sound = attention._kv_window
+    out["faults"] = {}
+    for name, plant in _skip_plants(attention).items():
+        attention._kv_window = plant
+        try:
+            got = attention._chunked_sdpa(on, q, k, v)
+        finally:
+            attention._kv_window = sound
+        out["faults"][name] = (got.float() - full.float()).abs().max().item()
+    return out
+
+
+def _max_diff(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def phase_tile_skip(torch, card, setup=None):
+    """Phase 16: the sliding-window tile skip (``AttnSpec.tile_skip``).
+    danube at full width, SKIP_LAYERS layers, 6:8 compressed int8 (B1
+    runs every linear): the one-shot prefill of SKIP_S tokens at batch 1
+    with the skip off and on in turns, every attention output and the
+    logits bit-equal, the KV chunk pairs visited (nq x nk without the
+    skip, nq x n_win with it), B1 launched; the attention alone timed
+    off and on; a paged prefill chunk at the device offset SKIP_START
+    through ``pool_attend`` bit-equal skip on and off, with no host sync;
+    the two planted faults caught there; the phase within PHASE16_S."""
+    from repro_torch.models import attention
+    setup = setup or {"device": "cuda"}
+    dev = torch.device(setup["device"])
+    t0 = time.time()
+    cfg, params, tokens = _skip_setup(torch, setup)
+    s = tokens.shape[1]
+    log(f"== phase 16: the tile skip: h2o-danube-3-4b d{cfg.d_model} at "
+        f"{cfg.num_layers} layers, window {cfg.sliding_window}, 6:8 "
+        f"compressed int8, one-shot prefill S = {s} at batch 1; a paged "
+        f"prefill chunk of {PREFILL_CHUNK} at {SKIP_START} ==")
+    runs, launches = _skip_prefill(torch, cfg, params, tokens, _counters())
+    base = runs[False][0]
+    for skip, group in runs.items():
+        for r in group:
+            assert torch.equal(r["logits"], base["logits"]), \
+                f"skip {skip}: the logits differ from the full scan's"
+            assert len(r["outs"]) == len(base["outs"]) == cfg.num_layers
+            for i, (a, b) in enumerate(zip(r["outs"], base["outs"])):
+                assert torch.equal(a, b), \
+                    f"skip {skip}, layer {i}: {_max_diff(a, b)}"
+    ck = min(1024, s)
+    nk = -(-s // ck)
+    n_win = min(nk, (cfg.sliding_window + ck + ck - 1) // ck + 1)
+    pairs = {skip: runs[skip][0]["pairs"] for skip in runs}
+    assert all(p == nk * nk for p in pairs[False]), pairs
+    assert all(p == nk * n_win for p in pairs[True]), pairs
+    assert setup["device"] != "cuda" or launches["compressed_matmul"] > 0, \
+        launches
+    log(f"(16) one-shot prefill: skip on == off bit for bit (last-token "
+        f"logits, each layer's attention output), 4 runs in turns; KV "
+        f"chunk pairs a layer {pairs[False][0]} without the skip, "
+        f"{pairs[True][0]} with it ({nk} query chunks x {n_win}); launches "
+        f"{launches}")
+    timer = Timer(torch) if setup["device"] == "cuda" else None
+    att = _skip_attention(torch, cfg, dev, timer, s)
+    paged = _skip_paged(torch, cfg, dev)
+    del timer
+    assert torch.equal(paged["on"], paged["off"]), \
+        _max_diff(paged["on"], paged["off"])
+    caught = {name: _max_diff(paged[name], paged["off"])
+              for name in _skip_plants(attention)}
+    out = {"launches": launches, "pairs": (pairs[False][0], pairs[True][0]),
+           "ms": att["ms"], "one_shot_faults": att["faults"],
+           "paged_faults": caught, "seconds": time.time() - t0}
+    if att["ms"]:
+        log(f"(16) the attention alone (layer 0's shapes, bf16): skip off "
+            f"{att['ms'][0]:.3f} ms, on {att['ms'][1]:.3f} ms "
+            f"({att['ms'][1] / att['ms'][0]:.3f}x; pairs "
+            f"{pairs[True][0] / pairs[False][0]:.3f}x) ({card})")
+    log(f"(16) paged prefill chunk at the device offset {SKIP_START}: skip "
+        f"on == off bit for bit, no host sync; planted faults there, max "
+        f"|fault - full scan|: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in caught.items())
+        + "; at the one-shot prefill (offset 0, aligned): " + ", ".join(
+            f"{k} {v:.4g}" for k, v in att["faults"].items()))
+    log(f"phase 16 (tile skip): {out['seconds']:.1f} s (budget "
+        f"{PHASE16_S} s; {card})")
+    for name, v in caught.items():
+        assert v > 0, f"planted fault {name} not caught at the paged chunk"
+    assert setup["device"] != "cuda" or out["seconds"] <= PHASE16_S, \
+        out["seconds"]
+    return out
+
+
 # the witnesses that split phase 15's logit gap between its sources, each
 # against its own single-device reference: (name, setup)
 SEQ_WITNESSES = (
@@ -5891,6 +6177,9 @@ def main() -> int:
     mark("6 (features)")
     features = phase_features(torch, card, packs, compressed["prompts"],
                               compressed["ecfg"], slided["tokens"])
+    # phase 11's ranks load these packings, not pack their own
+    tp_packs = _tp_save(torch, packs, compressed["prompts"],
+                        compressed["ecfg"])
     del packs
     torch.cuda.empty_cache()
     mark("7 (float gate)")
@@ -5914,7 +6203,7 @@ def main() -> int:
         gc.collect()  # engines and graphs of earlier phases in cycles
         torch.cuda.empty_cache()
         mark("11 (tp)")
-        tp = phase_tp(torch, card, ref, Timer(torch))
+        tp = phase_tp(torch, card, ref, Timer(torch), tp_packs)
         gc.collect()
         torch.cuda.empty_cache()
         mark("12 (mesh)")
@@ -5937,6 +6226,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("15 (sequence-sharded serve)")
     seq_serve = phase_seq_serve(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("16 (tile skip)")
+    tile_skip = phase_tile_skip(torch, card)
     prof, tok_s = slided["profile"], slided["tok_s"]
     for label, pr in prof.items():
         log(f"slided decode step, {label}: {pr['step_ms']:.3f} ms, host "
@@ -6004,6 +6297,13 @@ def main() -> int:
             f"{[round(g['max_memory_allocated'] / 1e9, 3) for g in seq_serve['ranks']]}"
             f" GB; phase 15 {seq_serve['seconds']:.1f} s ({card})")
 
+    ms = tile_skip["ms"]
+    log(f"tile skip (phase 16): KV chunk pairs a layer "
+        f"{tile_skip['pairs'][0]} -> {tile_skip['pairs'][1]}; the "
+        f"one-shot attention at S = {SKIP_S} {ms[0]:.3f} -> {ms[1]:.3f} ms; "
+        f"launches {tile_skip['launches']}; phase 16 "
+        f"{tile_skip['seconds']:.1f} s ({card})")
+
     quick = library["quickstart"]["launches"]
     # phase 15: rank 0's launches over both modes' runs
     seq_launches = {name: sum(m["launches"][0][name]
@@ -6019,6 +6319,7 @@ def main() -> int:
                 "mesh_training_launches": 0,
                 "quickstart_launches": quick.get(name, 0),
                 "seq_serve_launches": seq_launches[name],
+                "tile_skip_launches": tile_skip["launches"].get(name, 0),
                 "max_abs_err": err,
                 "ms": st["ms"], "kernel_ms": st["ms"],
                 "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
@@ -6051,7 +6352,7 @@ def main() -> int:
               tp["slided"]["act_absmax"], tp["kernels"]["B3_act_absmax"],
               tp["kernels"]["row"]),
     ]
-    mark("16 (the kernels line)")
+    mark("17 (the kernels line)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,12 @@ Cells the port cannot run are ``status: "skipped"`` with the reason;
 none is dropped.  Records go to ``build/repro_torch/dryrun/`` at the
 root of the checkout.
 
+The levers are JAX's flags (``--swa-tile-skip``, ``--moe-pad N``,
+``--act-quant int8``, ``--seq-par`` and the rest), recorded under
+``levers``; ``--all`` hands them to every cell.  JAX's
+``--serve-tp-only`` has no counterpart: the serving cells already run
+the tensor-parallel layout it selects.
+
 Usage:
   python -m repro_torch.launch.dryrun --arch phi3-medium-14b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--multi-pod|--single-pod|--both]
@@ -137,14 +143,15 @@ def fake_params(cfg: ModelConfig, device) -> dict:
                          M.init(cfg, gen))
 
 
-def _counted(fn, *trees) -> dict:
-    """What ``fn()`` counts under a live-bytes tracker (``trees`` resident
-    before it) and an op counter, with the collective, TP and dry-kernel
-    tallies reset first."""
+def _counted(fn, *trees, live: LiveBytes | None = None) -> dict:
+    """What ``fn()`` counts under a live-bytes tracker (``live``, a fresh
+    :class:`LiveBytes` by default; ``trees`` resident before it) and an
+    op counter, with the collective, TP and dry-kernel tallies reset
+    first."""
     ctx.reset_counts()
     tp.reset_counts()
     ops.reset_dry_costs()
-    live = LiveBytes()
+    live = live if live is not None else LiveBytes()
     live.track(*trees)
     with live:
         fn()
@@ -182,7 +189,8 @@ def resident_bytes(whole, opt_cfg: adamw.AdamWConfig, sizes: dict,
 
 def train_step_dry(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                    global_batch: int, seq_len: int, sizes: dict | None = None,
-                   rank: int = 0, device=None, accum: int = 1) -> dict:
+                   rank: int = 0, device=None, accum: int = 1,
+                   live: LiveBytes | None = None) -> dict:
     """One training step as rank ``rank`` of a dry mesh of ``sizes``
     (None: one device, no layout) on fake tensors: resident and peak
     bytes, op counts, collectives."""
@@ -215,7 +223,7 @@ def train_step_dry(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                     + rules.resident_bytes(opt_state))
         out = _counted(lambda: steps.train_step(
             cfg, opt_cfg, params, opt_state, batch, accum=accum,
-            layout=layout), params, opt_state, batch)
+            layout=layout), params, opt_state, batch, live=live)
     extra = {} if sizes is None else {
         "tp": t, "replicas": mesh.axis_size("model") // t}
     return dict(out, resident_bytes=resident, local_batch=local_b,
@@ -241,7 +249,8 @@ def seq_sharded(shape: shp.ShapeSpec, sizes: dict) -> bool:
 
 
 def seq_serve_step_dry(cfg: ModelConfig, shape: shp.ShapeSpec, sizes: dict,
-                       rank: int = 0, device=None) -> dict:
+                       rank: int = 0, device=None,
+                       live: LiveBytes | None = None) -> dict:
     """One sequence-sharded decode step (``steps.serve_step(mesh=...)``)
     as rank ``rank`` of a dry mesh of ``sizes`` on fake tensors: its
     tensor-parallel shard of the weights, its S-slice of every attention
@@ -262,7 +271,7 @@ def seq_serve_step_dry(cfg: ModelConfig, shape: shp.ShapeSpec, sizes: dict,
         resident = rules.resident_bytes(params) + rules.resident_bytes(cache)
         out = _counted(lambda: steps.serve_step(
             cfg, params, specs["token"], cache, specs["kv_len"], mesh=mesh,
-            layout=layout), params, cache, specs)
+            layout=layout), params, cache, specs, live=live)
         t = mesh.axis_size(steps.serve_axis(cfg, mesh))
     seq = layout.seq
     return dict(out, resident_bytes=resident,
@@ -274,13 +283,14 @@ def seq_serve_step_dry(cfg: ModelConfig, shape: shp.ShapeSpec, sizes: dict,
 
 
 def serve_step_dry(cfg: ModelConfig, shape: shp.ShapeSpec, sizes: dict,
-                   rank: int = 0, device=None) -> dict:
+                   rank: int = 0, device=None,
+                   live: LiveBytes | None = None) -> dict:
     """One prefill or decode step of ``shape`` as rank ``rank``: its TP
     shard of the weights and its slice of the batch, on fake tensors; a
     cell whose batch does not divide the data-parallel axes runs the
     sequence-sharded step (:func:`seq_serve_step_dry`)."""
     if seq_sharded(shape, sizes):
-        return seq_serve_step_dry(cfg, shape, sizes, rank, device)
+        return seq_serve_step_dry(cfg, shape, sizes, rank, device, live)
     device = device or fake_device()
     dp = math.prod(s for a, s in sizes.items() if a != "model")
     t = serve_tp(cfg, sizes.get("model", 1))
@@ -298,14 +308,15 @@ def serve_step_dry(cfg: ModelConfig, shape: shp.ShapeSpec, sizes: dict,
                 cache = None
                 resident = rules.resident_bytes(params)
                 out = _counted(lambda: steps.prefill_step(
-                    cfg, shape.seq_len, params, specs), params, specs)
+                    cfg, shape.seq_len, params, specs), params, specs,
+                    live=live)
             else:
                 cache = M.make_cache(cfg, b, shape.seq_len, device=device)
                 resident = (rules.resident_bytes(params)
                             + rules.resident_bytes(cache))
                 out = _counted(lambda: steps.serve_step(
                     cfg, params, specs["token"], cache, specs["kv_len"]),
-                    params, cache, specs)
+                    params, cache, specs, live=live)
     extra = {} if cache is None else {
         "cache_bytes": rules.resident_bytes(cache)}
     return dict(out, resident_bytes=resident, local_batch=b, tp=t,
@@ -318,8 +329,27 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
              sparse: tuple[int, int] | None = None,
              precision: str | None = None, kv_int8: bool = False,
              no_remat2: bool = False, grad_accum: int = 1,
-             seq_par: bool = False) -> dict:
+             seq_par: bool = False, swa_tile_skip: bool = False,
+             moe_pad: int = 0, act_quant: str | None = None,
+             live: LiveBytes | None = None) -> dict:
+    """One cell's record.  The levers (JAX's dry-run flags) map as JAX's
+    do: ``swa_tile_skip`` -> ``cfg.swa_tile_skip``, ``moe_pad`` ->
+    ``cfg.moe_expert_padding``, ``act_quant`` (the legacy precision axis,
+    with ``sparse`` only) -> ``SparsityConfig(act_quant=...)``, which
+    ``core.precision.resolve`` maps onto the int8 recipe; the record's
+    ``levers`` names every one that differs from its default.  ``live``:
+    the step's live-bytes tracker (``tools.op_profile``'s), a fresh
+    :class:`LiveBytes` by default."""
+    set_levers = levers(
+        opt_state=opt_state_dtype, sparse=list(sparse or ()),
+        precision=precision, act_quant=act_quant, kv_int8=kv_int8,
+        no_remat2=no_remat2, grad_accum=grad_accum, seq_par=seq_par,
+        swa_tile_skip=swa_tile_skip, moe_pad=moe_pad)
     cfg = registry.get(arch)
+    if swa_tile_skip:
+        cfg = dataclasses.replace(cfg, swa_tile_skip=True)
+    if moe_pad:
+        cfg = dataclasses.replace(cfg, moe_expert_padding=moe_pad)
     if seq_par:
         cfg = dataclasses.replace(cfg, sequence_parallel=True)
     if no_remat2:
@@ -332,11 +362,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
             pattern=tuple(sparse),
             mode="masked" if shape_kind == "train" else "compressed",
-            recipe=precision))
+            recipe=precision, act_quant=act_quant))
     shape = shp.SHAPES[shape_name]
     sizes = production_sizes(multi_pod)
     rec = {"arch": arch, "shape": shape_name,
-           "mesh": "2x16x16" if multi_pod else "16x16"}
+           "mesh": "2x16x16" if multi_pod else "16x16",
+           "levers": set_levers}
     ok, reason = shp.applicable(cfg, shape)
     if not ok:
         rec.update(status="skipped", reason=reason)
@@ -349,9 +380,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     if shape.kind == "train":
         opt_cfg = adamw.AdamWConfig(state_dtype=opt_state_dtype)
         cell = train_step_dry(cfg, opt_cfg, shape.global_batch,
-                              shape.seq_len, sizes, accum=grad_accum)
+                              shape.seq_len, sizes, accum=grad_accum,
+                              live=live)
     else:
-        cell = serve_step_dry(cfg, shape, sizes)
+        cell = serve_step_dry(cfg, shape, sizes, live=live)
     dt = time.time() - t0
     roof = analysis.from_counts(
         cell["counts"], cell["collectives"], chips,
@@ -386,6 +418,30 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     return rec
 
 
+# the levers (the dry run's flags, ``--`` + the name with dashes) and
+# their defaults: the recorded baseline
+LEVER_DEFAULTS = {"opt_state": "int8", "sparse": [], "precision": None,
+                  "act_quant": None, "kv_int8": False, "no_remat2": False,
+                  "grad_accum": 1, "seq_par": False, "swa_tile_skip": False,
+                  "moe_pad": 0}
+
+
+def levers(**values) -> dict:
+    """The levers among ``values`` that differ from their defaults."""
+    return {k: v for k, v in values.items() if v != LEVER_DEFAULTS[k]}
+
+
+def lever_flags(set_levers: dict) -> list[str]:
+    """The command-line flags of ``set_levers`` (a record's ``levers``;
+    ``--all`` hands them to each cell's process)."""
+    out = []
+    for name, v in set_levers.items():
+        flag = "--" + name.replace("_", "-")
+        out += [flag] if v is True else [flag, *map(
+            str, v if isinstance(v, list) else [v])]
+    return out
+
+
 def all_cells(meshes: list[bool]):
     for arch in registry.ARCH_IDS:
         for shape_name in shp.SHAPES:
@@ -398,7 +454,7 @@ def _cell_path(arch: str, shape_name: str, multi: bool) -> Path:
 
 
 def _summary(rec: dict) -> dict:
-    keys = ("arch", "shape", "mesh", "status", "reason", "tp",
+    keys = ("arch", "shape", "mesh", "levers", "status", "reason", "tp",
             "sequence_parallel",
             "resident_bytes", "peak_bytes", "fits", "flops_per_rank",
             "collective_count", "seconds")
@@ -418,6 +474,7 @@ def main(argv=None):
     ap.add_argument("--jobs", type=int, default=1,
                     help="subprocesses for --all")
     ap.add_argument("--sparse", nargs=2, type=int, metavar=("Z", "L"),
+                    default=[],
                     help="SlideSparse weights: masked (STE) in train cells, "
                          "compressed in serve cells")
     ap.add_argument("--precision", default=None,
@@ -433,6 +490,15 @@ def main(argv=None):
                     help="sequence parallelism (Megatron-SP) in train "
                          "cells: the residual stream split along S over "
                          "the model axis' split")
+    ap.add_argument("--swa-tile-skip", action="store_true",
+                    help="sliding-window layers visit only the KV chunks "
+                         "of their window (AttnSpec.tile_skip)")
+    ap.add_argument("--moe-pad", type=int, default=0,
+                    help="pad the expert stacks to N (expert parallelism "
+                         "where E does not divide the axis)")
+    ap.add_argument("--act-quant", choices=["int8"], default=None,
+                    help="legacy precision flag for --sparse; maps onto "
+                         "the int8 recipe")
     args = ap.parse_args(argv)
 
     meshes = [True] if args.multi_pod else [False]
@@ -442,14 +508,14 @@ def main(argv=None):
     if args.all:
         RESULTS_DIR.mkdir(parents=True, exist_ok=True)
         cells = list(all_cells(meshes))
+        flags = lever_flags(levers(**{k: getattr(args, k)
+                                      for k in LEVER_DEFAULTS}))
         failed, running = [], []
         for arch, shape_name, multi in cells:
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                    "--arch", arch, "--shape", shape_name,
-                   "--multi-pod" if multi else "--single-pod",
-                   "--opt-state", args.opt_state, "--json",
-                   str(_cell_path(arch, shape_name, multi))] + \
-                (["--seq-par"] if args.seq_par else [])
+                   "--multi-pod" if multi else "--single-pod", "--json",
+                   str(_cell_path(arch, shape_name, multi))] + flags
             while len(running) >= max(1, args.jobs):
                 running = _reap(running, failed)
             print("[dryrun] launch:", " ".join(cmd[3:]), flush=True)
@@ -473,7 +539,8 @@ def main(argv=None):
                    sparse=tuple(args.sparse) if args.sparse else None,
                    precision=args.precision, kv_int8=args.kv_int8,
                    no_remat2=args.no_remat2, grad_accum=args.grad_accum,
-                   seq_par=args.seq_par)
+                   seq_par=args.seq_par, swa_tile_skip=args.swa_tile_skip,
+                   moe_pad=args.moe_pad, act_quant=args.act_quant)
     path = Path(args.json) if args.json else _cell_path(
         args.arch, args.shape, meshes[-1])
     path.parent.mkdir(parents=True, exist_ok=True)

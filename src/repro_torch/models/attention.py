@@ -46,6 +46,7 @@ class AttnSpec:
     m_rope: bool = False
     q_chunk: int = 1024
     kv_chunk: int = 1024
+    tile_skip: bool = False  # windowed layers scan only their KV chunks
 
     @property
     def q_dim(self):
@@ -95,12 +96,37 @@ def _mask_tile(spec: AttnSpec, q_pos, k_pos):
     return torch.where(ok, 0.0, NEG_INF)
 
 
+def _kv_window(spec: AttnSpec, q_offset, qi: int, cq: int, ck: int,
+               nk: int):
+    """The KV chunks query chunk ``qi`` visits: ``n`` chunks from
+    ``first`` on, all ``nk`` from 0 but under ``spec.tile_skip`` in a
+    causal sliding-window layer.  There the ``n`` chunks hold every key
+    the chunk's rows see, from the first row's absolute position
+    (``q_offset + qi * cq``) less the window, clamped into the ``nk``.
+    JAX's slice starts from ``qi * cq`` and drops ``q_offset``, which is
+    right only at offset 0.  ``first`` is an int, or an int device
+    tensor where ``q_offset`` is one."""
+    w = spec.sliding_window
+    if not (spec.tile_skip and spec.causal and w is not None):
+        return 0, nk
+    n = min(nk, (w + cq + ck - 1) // ck + 1)
+    start = (q_offset + qi * cq - w + 1) // ck
+    if isinstance(start, torch.Tensor):
+        return torch.clamp(start, 0, nk - n), n
+    return min(max(start, 0), nk - n), n
+
+
 def _chunked_sdpa(spec: AttnSpec, q, k, v, q_offset=0):
     """q: [B, Sq, H, hd]; k/v: [B, Sk, KVH, hd] -> [B, Sq, H, hd].
     Two-level loop (query chunks, then KV chunks) with running
     (max, denom, acc): the FlashAttention dataflow in plain torch.
     ``q_offset``: an int, or an int32 device scalar (a prefill chunk's
-    start)."""
+    start).  Under ``spec.tile_skip`` a sliding-window layer visits only
+    the KV chunks of :func:`_kv_window`, sliced (a device offset's by an
+    ``index_select``, no host sync); a chunk it skips is wholly masked,
+    and a wholly masked chunk adds exactly nothing once a valid one
+    rescales the running sums by exp(NEG_INF - m) = 0, so the output is
+    the full scan's bit for bit."""
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     rep = h // kvh
@@ -122,9 +148,19 @@ def _chunked_sdpa(spec: AttnSpec, q, k, v, q_offset=0):
         l = torch.zeros((b, h, cq), dtype=torch.float32, device=dev)
         acc = torch.zeros((b, h, cq, hd), dtype=torch.float32, device=dev)
         q5 = q_i.reshape(b, cq, kvh, rep, hd)
-        for kj in range(nk):
-            k_j = kf[:, kj * ck:(kj + 1) * ck]
-            v_j = vf[:, kj * ck:(kj + 1) * ck]
+        first, n = _kv_window(spec, q_offset, qi, cq, ck, nk)
+        gather = isinstance(first, torch.Tensor)
+        if gather:
+            idx = first + torch.arange(n, device=dev)
+            kw = kf.reshape(b, nk, ck, kvh, hd).index_select(1, idx)
+            vw = vf.reshape(b, nk, ck, kvh, hd).index_select(1, idx)
+        for j in range(n):
+            kj = first + j
+            if gather:
+                k_j, v_j = kw[:, j], vw[:, j]
+            else:
+                k_j = kf[:, kj * ck:(kj + 1) * ck]
+                v_j = vf[:, kj * ck:(kj + 1) * ck]
             k_pos = torch.arange(ck, dtype=torch.int32, device=dev) + kj * ck
             mask = _mask_tile(spec, q_pos, k_pos)
             mask = torch.where((k_pos < sk)[None, :], mask, NEG_INF)

@@ -58,7 +58,7 @@ def attn_spec(cfg: ModelConfig, kind: str) -> attention.AttnSpec:
         head_dim=cfg.resolved_head_dim,
         rope_theta=cfg.rope_theta, causal=True,
         sliding_window=cfg.sliding_window if kind == "swa" else None,
-        m_rope=cfg.m_rope)
+        m_rope=cfg.m_rope, tile_skip=cfg.swa_tile_skip)
 
 
 def ssm_spec(cfg: ModelConfig) -> ssm.SSMSpec:

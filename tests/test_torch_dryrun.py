@@ -417,7 +417,7 @@ def test_serving_tp_degree_and_skips(monkeypatch):
             continue
         assert not jok and rec == {
             "arch": arch, "shape": "long_500k", "mesh": "2x16x16",
-            "status": "skipped", "reason": jreason}
+            "levers": {}, "status": "skipped", "reason": jreason}
     assert sorted(ran) == sorted(a for a in ARCHS
                                  if jreg.get(a).sub_quadratic)
     assert len(ran) == 5

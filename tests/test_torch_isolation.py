@@ -64,3 +64,11 @@ def test_cost_model_autotuner_and_dry_run_are_covered():
             "repro_torch.configs.shapes", "repro_torch.launch.op_cost",
             "repro_torch.launch.analysis",
             "repro_torch.launch.dryrun"} <= set(MODULES)
+
+
+def test_tools_are_covered():
+    """The dry run's tools are among the modules imported above with JAX
+    and the JAX package blocked."""
+    assert {"repro_torch.tools", "repro_torch.tools.hillclimb",
+            "repro_torch.tools.make_tables",
+            "repro_torch.tools.op_profile"} <= set(MODULES)
