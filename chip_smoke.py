@@ -3884,6 +3884,33 @@ GPIPE_OUT_RL2, GPIPE_GRAD_RL2 = 1e-5, 1e-4
 GPIPE_STAGES, GPIPE_MICRO, GPIPE_MB = 4, 4, 2
 COMP_SHAPE = (10240, 3840)     # (c) one w_gate / w_up gradient leaf
 MESH_TIMEOUT = 600
+# (f) the split step of the configs whose vocabulary divides by no t > 1,
+# over (data 1, model 4), each one direct step on the -1 batch beside the
+# single device's: whisper-small at full width and depth (12 + 12 layers,
+# d768, the 1500 stub frames; t = 4 of its 12 heads) and granite-moe at
+# full width, MESH_LAYERS layers (t = 4 of its 8 KV heads), masked 6:8.
+# Neither vocabulary (51865, 49155) divides by 4, so each LM head splits
+# the tokens (a 1/4 block of S a rank, the head whole).  Each step is
+# read beside two planted faults: enc_out entering the cross K/V without
+# the all-reduce in its backward; the head's (NLL, count) or the
+# lm_head's gradient left unsummed over the t ranks
+ENCDEC_ARCHS = ("whisper-small", "granite-moe-3b-a800m")
+ENCDEC_BATCH = {"whisper-small": 4, "granite-moe-3b-a800m": TRAIN_BATCH}
+ENCDEC_FAULTS = {"whisper-small": ("enc_out_no_sum", "head_grad_unsummed"),
+                 "granite-moe-3b-a800m": ("head_nll_unsummed",
+                                          "head_grad_unsummed")}
+ENCDEC_SMOKE_VOCAB = 131       # the rehearsal's: 128 would divide by t
+# (f) runs in fp32 (TF32 off): in bf16 the split and one device part by
+# bf16's rounding, on an H100 80GB HBM3 (700 W) worst leaves 0.0475
+# (whisper's self-attention wk) and 0.118 (granite: its router, where
+# rounding moves tokens between experts), against faults of 0.76 and
+# more, so MESH_GRAD_RL2 could not tell them apart.  In fp32 the sound
+# steps read 3.05e-6 and 2.99e-6 and the faults 0.761-3.04; the gate
+# sits 30x above the sound readings.  ``phase_mesh`` given ``{"device": "cuda",
+# "encdec_dtype": "bfloat16"}`` reads the same steps in bf16 (and stops
+# at this gate)
+ENCDEC_DTYPE = "float32"
+ENCDEC_GRAD_RL2 = 1e-4         # worst leaf of the -1 batch's gradients
 
 
 def _mesh_setup(setup):
@@ -3911,8 +3938,27 @@ def _minus_one_batch(torch, cfg, b, s, device):
     batch = {k: torch.from_numpy(v.copy()).to(device) for k, v in nb.items()}
     batch["labels"][0] = -1
     batch["labels"][1, s // 8:] = -1
-    batch["labels"][5, :3] = -1
+    batch["labels"][min(5, b - 1), :3] = -1
     return batch
+
+
+def _encdec_setup(setup):
+    """(f)'s (arch, config, global batch, sequence) for each step: full
+    width on the card in ENCDEC_DTYPE (``setup["encdec_dtype"]`` another);
+    ``setup["smoke"]`` the smoke configs with an odd vocabulary, for a
+    rehearsal on CPU ranks."""
+    from repro_torch.configs import registry
+    out = []
+    for arch in ENCDEC_ARCHS:
+        if setup.get("smoke"):
+            out.append((arch, _masked(registry.smoke_config(arch),
+                                      vocab_size=ENCDEC_SMOKE_VOCAB), 8, 32))
+            continue
+        over = {} if arch == "whisper-small" else {"num_layers": MESH_LAYERS}
+        out.append((arch, _masked(registry.get(arch), dtype=setup.get(
+            "encdec_dtype", ENCDEC_DTYPE), **over),
+            ENCDEC_BATCH[arch], TRAIN_SEQ))
+    return out
 
 
 def _mesh_reference(torch, setup, root):
@@ -3950,6 +3996,37 @@ def _mesh_reference(torch, setup, root):
         f"{ref['flops']:.4e} FLOPs (op_cost); {time.time() - t0:.1f} s")
 
 
+def _encdec_reference(torch, setup, root):
+    """The single device's side of (f): each config's loss and gradients
+    on its -1 batch at the seed-0 init, saved for the ranks."""
+    from repro_torch.launch import op_cost
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps
+    dev = torch.device(setup["device"])
+    for arch, cfg, b, s in _encdec_setup(setup):
+        t0 = time.time()
+        params = M.init(cfg, torch.Generator(device=dev).manual_seed(0))
+        leaves = steps.trainable(params)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        with op_cost.OpCounter() as counter:
+            loss = M.loss_fn(params, cfg, _minus_one_batch(torch, cfg, b, s,
+                                                             dev))
+            grads = torch.autograd.grad(loss, leaves)
+        ref = {"grads": [g.cpu() for g in grads],
+               "loss_m1": float(loss.detach()),
+               "flops": counter.counts["flops"],
+               "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                           if dev.type == "cuda" else 0.0)}
+        torch.save(ref, f"{root}/ref_{arch}.pt")
+        log(f"(f) single device, {arch} ({cfg.num_layers} decoder layers, "
+            f"vocab {cfg.vocab_size}), {b} x {s}: the -1 batch's loss "
+            f"{ref['loss_m1']:.5f}, loss + gradients {ref['flops']:.4e} "
+            f"FLOPs (op_cost), peak {ref['peak_gb']:.3f} GB; "
+            f"{time.time() - t0:.1f} s")
+        del params, leaves, grads, loss, ref
+
+
 def _replica(mesh, spec) -> float:
     """1.0 on the one rank that counts a piece of ``spec`` (coordinate 0
     on every axis the piece is replicated over), else 0.0."""
@@ -3961,9 +4038,16 @@ def _replica(mesh, spec) -> float:
 
 def _mesh_rl2(torch, pieces, specs, mesh, wholes):
     """The worst leaf's relative L2 between the whole leaves whose pieces
-    this rank holds and whole references (host tensors), with no gather:
-    each rank sums over its piece against the same cut of the reference
-    (one replica of each piece counting), then one all-reduce."""
+    this rank holds and whole references (host tensors)
+    (:func:`_mesh_leaf_rl2`)."""
+    return max(_mesh_leaf_rl2(torch, pieces, specs, mesh, wholes))
+
+
+def _mesh_leaf_rl2(torch, pieces, specs, mesh, wholes):
+    """Each leaf's relative L2 between the whole leaves whose pieces this
+    rank holds and whole references (host tensors), with no gather: each
+    rank sums over its piece against the same cut of the reference (one
+    replica of each piece counting), then one all-reduce."""
     from repro_torch.sharding import rules
     sums = []
     for x, sp, w in zip(pieces, specs, wholes):
@@ -3972,7 +4056,7 @@ def _mesh_rl2(torch, pieces, specs, mesh, wholes):
         sums.append(torch.stack([(diff * diff).sum(), (ref * ref).sum()])
                     * _replica(mesh, sp))
     tot = mesh.all_reduce(torch.stack(sums), mesh.axis_names, "sum")
-    return float((tot[:, 0] / tot[:, 1]).sqrt().max())
+    return (tot[:, 0] / tot[:, 1]).sqrt().tolist()
 
 
 FP_PRIME = 2 ** 31 - 1
@@ -4017,20 +4101,34 @@ def _pieces_rl2(torch, a, b, specs, mesh):
 def _mesh_direct(torch, cfg, mesh, params, lay, batch, ref, fault,
                  keep=False, count=False):
     """One sharded step's loss and gradients on the -1 batch, sound or
-    under a planted fault (MESH_FAULTS): one rank skips the data-parallel
-    gradient sum (its collectives still run); the loss is the mean of the
-    local means; ``tp.copy_in``'s backward skips its all-reduce; the
-    cross entropy takes a logsumexp over the rank's vocab slice only.
-    Read against the single device's on every rank (the gradients' sums
-    all-reduced, no gather); ``keep`` returns the gradient pieces too,
-    ``count`` the step's FLOPs (``launch.op_cost``) and collectives."""
+    under a planted fault (MESH_FAULTS, ENCDEC_FAULTS): one rank skips
+    the data-parallel gradient sum (its collectives still run); the loss
+    is the mean of the local means; ``tp.copy_in``'s backward skips its
+    all-reduce; the cross entropy takes a logsumexp over the rank's vocab
+    slice only; the encoder output enters the cross K/V without the
+    all-reduce in its backward (``encdec._cross_in``); the token-split
+    head's (NLL, count) or its lm_head's gradient is left unsummed over
+    the ranks.  Read against the single device's on every rank (the
+    gradients' sums all-reduced, no gather); ``keep`` returns the
+    gradient pieces too, ``count`` the step's FLOPs
+    (``launch.op_cost``).  The collectives and the bytes handed to them
+    are counted always."""
     from repro_torch.launch import op_cost
-    from repro_torch.models import transformer
+    from repro_torch.models import encdec, transformer
     from repro_torch.runtime import steps
     from repro_torch.sharding import ctx, rules, tp
     orig_rg, orig_w = steps.reduce_grad, steps.loss_weight
     orig_copy, orig_lse = tp._CopyIn.backward, transformer._vocab_lse
-    if fault == "copy_in_no_sum":
+    orig_cross = encdec._cross_in
+    orig_sum, orig_block = transformer._token_sum, transformer._token_block
+    if fault == "enc_out_no_sum":
+        encdec._cross_in = lambda x: x
+    elif fault == "head_nll_unsummed":
+        transformer._token_sum = lambda total, n: (total, n)
+    elif fault == "head_grad_unsummed":
+        transformer._token_block = lambda lm_head, h, labels: (
+            (lm_head,) + orig_block(lm_head, h, labels)[1:])
+    elif fault == "copy_in_no_sum":
         tp._CopyIn.backward = staticmethod(lambda c, g: (g, None))
     elif fault == "local_lse":
         transformer._vocab_lse = lambda x: torch.logsumexp(x, dim=-1)
@@ -4048,21 +4146,27 @@ def _mesh_direct(torch, cfg, mesh, params, lay, batch, ref, fault,
     try:
         local = {k: rules.cut(v, rules.batch_spec(v, mesh), mesh)
                  for k, v in batch.items()}
-        n0 = ctx.collective_count()
+        n0, w0 = ctx.collective_count(), ctx.wire_bytes()
+        t0 = time.time()
         if count:
             with counter:
                 loss, grads = steps.sharded_grads(cfg, params, local, lay)
         else:
             loss, grads = steps.sharded_grads(cfg, params, local, lay)
-        n1 = ctx.collective_count()
+        seconds = time.time() - t0
+        n1, w1 = ctx.collective_count(), ctx.wire_bytes()
     finally:
         steps.reduce_grad, steps.loss_weight = orig_rg, orig_w
         tp._CopyIn.backward = staticmethod(orig_copy)
         transformer._vocab_lse = orig_lse
+        encdec._cross_in = orig_cross
+        transformer._token_sum = orig_sum
+        transformer._token_block = orig_block
+    leaf = _mesh_leaf_rl2(torch, grads, lay.params, mesh, ref["grads"])
     out = {"loss": float(loss), "loss_rel": abs(float(loss) - ref["loss_m1"])
-           / abs(ref["loss_m1"]), "grad_rl2": _mesh_rl2(
-               torch, grads, lay.params, mesh, ref["grads"]),
-           "t": steps.split_degree(cfg, mesh), "collectives": n1 - n0}
+           / abs(ref["loss_m1"]), "grad_rl2": max(leaf), "leaf_rl2": leaf,
+           "t": steps.split_degree(cfg, mesh), "collectives": n1 - n0,
+           "wire": w1 - w0, "seconds": seconds}
     if count:
         out["flops"] = counter.counts["flops"]
     if keep:
@@ -4157,6 +4261,52 @@ def _mesh_train(torch, setup, root, dev):
         f"one split step (op_cost) {sound['flops']:.4e} at t = "
         f"{sound['t']}, {out['tp4']['flops']:.4e} at t = "
         f"{out['tp4']['t']}")
+    return out
+
+
+def _mesh_encdec(torch, setup, root, dev):
+    """(f) For each of ENCDEC_ARCHS over (data 1, model 4): the direct
+    split step on its -1 batch from the seed-0 init (its FLOPs, this
+    rank's peak memory, collectives and bytes handed to them) and under
+    its two planted faults, against the single device's
+    (``_encdec_reference``)."""
+    import gc
+    from repro_torch import tree
+    from repro_torch.models import model as M
+    from repro_torch.runtime import train_loop
+    from repro_torch.sharding import ctx
+    mesh = ctx.Mesh(MESH_TP4, ("data", "model"), device=dev)
+    out = {}
+    for arch, cfg, b, s in _encdec_setup(setup):
+        params0 = M.init(cfg, torch.Generator(device=dev).manual_seed(0))
+        names = ["/".join(map(str, p)) for p in tree.paths(params0)]
+        params, _, lay = train_loop._sharded_init(params0, _mesh_opt(), mesh)
+        del params0
+        ref = torch.load(f"{root}/ref_{arch}.pt", mmap=True)
+        batch = _minus_one_batch(torch, cfg, b, s, dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        res = {"sound": _mesh_direct(torch, cfg, mesh, params, lay, batch,
+                                     ref, None, count=True),
+               "ref_flops": ref["flops"], "ref_peak_gb": ref["peak_gb"],
+               "dtype": cfg.dtype}
+        res["worst_leaves"] = sorted(zip(res["sound"]["leaf_rl2"], names),
+                                     reverse=True)[:5]
+        if dev.type == "cuda":
+            res["sound"]["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        res.update({f: _mesh_direct(torch, cfg, mesh, params, lay, batch,
+                                    ref, f) for f in ENCDEC_FAULTS[arch]})
+        out[arch] = res
+        sd = res["sound"]
+        log(f"rank {mesh.rank}: (f) {arch} t = {sd['t']}: FLOPs "
+            f"{sd['flops']:.4e} ({sd['flops'] / ref['flops']:.4f} of one "
+            f"device's), peak {sd.get('peak_gb', 0):.3f} GB, "
+            f"{sd['collectives']} collectives, "
+            f"{sd['wire'] / 1e9:.4f} GB handed to them, "
+            f"{sd['seconds']:.2f} s")
+        del params, lay, ref, batch
+        gc.collect()
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
     return out
 
 
@@ -4281,6 +4431,9 @@ def mesh_rank(root: str, setup_json: str) -> int:
     out = {"train": _mesh_train(torch, setup, root, dev)}
     gc.collect()
     torch.cuda.empty_cache() if dev.type == "cuda" else None
+    out["encdec"] = _mesh_encdec(torch, setup, root, dev)
+    gc.collect()
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
     out["gpipe"] = _mesh_gpipe(torch, setup, dev)
     gc.collect()
     torch.cuda.empty_cache() if dev.type == "cuda" else None
@@ -4340,6 +4493,27 @@ def mesh_rank(root: str, setup_json: str) -> int:
         assert run["grad_rl2"] <= MESH_GRAD_RL2, run
     assert e["vs_off_loss_rel"] <= MESH_LOSS_RTOL, e
     assert e["vs_off_grad_rl2"] <= MESH_GRAD_RL2, e
+    for arch, f in out["encdec"].items():
+        sd = f["sound"]
+        log(f"(f) {arch} over (data 1, model 4), t = {sd['t']}, the "
+            f"token-split head, {f['dtype']}: loss {sd['loss']:.5f}, "
+            f"relative {sd['loss_rel']:.3g} (gate {MESH_LOSS_RTOL}), "
+            f"gradients worst leaf {sd['grad_rl2']:.3g} "
+            f"({f['worst_leaves'][0][1]}; gate {ENCDEC_GRAD_RL2}); planted "
+            f"faults, gradients / loss (gate > {MESH_GRAD_RL2}): "
+            + ", ".join(f"{k} {f[k]['grad_rl2']:.3g} / {f[k]['loss_rel']:.3g}"
+                        for k in ENCDEC_FAULTS[arch])
+            + f"; FLOPs a rank {sd['flops']:.4e} against one device's "
+            f"{f['ref_flops']:.4e} ({sd['flops'] / f['ref_flops']:.4f}), "
+            f"peak {sd.get('peak_gb', 0):.3f} GB a rank (one device "
+            f"{f['ref_peak_gb']:.3f}), {sd['collectives']} collectives "
+            f"handed {sd['wire'] / 1e9:.4f} GB, {sd['seconds']:.2f} s")
+        smoke_t = 2 if arch == "granite-moe-3b-a800m" else 4
+        assert sd["t"] == (smoke_t if setup.get("smoke") else 4), (arch, sd)
+        assert sd["loss_rel"] <= MESH_LOSS_RTOL, (arch, sd)
+        assert sd["grad_rl2"] <= ENCDEC_GRAD_RL2, (arch, f["worst_leaves"])
+        for k in ENCDEC_FAULTS[arch]:
+            assert f[k]["grad_rl2"] > MESH_GRAD_RL2, (arch, k, f[k])
     with open(f"{root}/mesh.json", "w") as f:
         json.dump(out, f)
     return 0
@@ -4393,9 +4567,11 @@ def mesh_restore_rank(root: str, setup_json: str) -> int:
 
 def phase_mesh(torch, card, setup=None):
     """Phase 12: multi-device training.  The single device's side of (a)
-    here (``_mesh_reference``); four gloo ranks sharing the card
-    (``mesh_rank``: (a) train over (data 2, model 2) beside two planted
-    faults, (b) GPipe over 4 stages, (c) the cross-pod int8 mean); then
+    and (f) here (``_mesh_reference``, ``_encdec_reference``); four gloo
+    ranks sharing the card (``mesh_rank``: (a) train over (data 2, model
+    2) beside two planted faults, (f) whisper-small's and granite-moe's
+    split steps with the token-split head, (b) GPipe over 4 stages, (c)
+    the cross-pod int8 mean); then
     two ranks restore (a)'s checkpoint (``mesh_restore_rank``, (d)), its
     leaves bit-equal to (a)'s final state."""
     import gc
@@ -4410,11 +4586,14 @@ def phase_mesh(torch, card, setup=None):
     log(f"== multi-device training: h2o-danube-3-4b d3840 at "
         f"{MESH_LAYERS} layers, masked 6:8, bf16, int8 AdamW moments, "
         f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, {MESH_RANKS} gloo ranks on "
-        f"one card ==")
+        f"one card; (f) whisper-small (12 + 12 layers) and granite-moe "
+        f"({MESH_LAYERS} layers) split 4 ways with the token-split head ==")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     arg = json.dumps(setup)
     with tempfile.TemporaryDirectory() as root:
         _mesh_reference(torch, setup, root)
+        gc.collect()
+        _encdec_reference(torch, setup, root)
         gc.collect()
         if setup["device"] == "cuda":
             torch.cuda.empty_cache()
@@ -4467,7 +4646,14 @@ def report_mesh(mesh, card):
         f"{[round(x / 1e9, 4) for x in a['wire']]}; gradients vs one device "
         f"{d['sound']['grad_rl2']:.3g}, faults "
         + " / ".join(f"{d[f]['grad_rl2']:.3g}" for f in MESH_FAULTS)
-        + f"; SP on vs off {a['sp']['vs_off_grad_rl2']:.3g}; GPipe fwd + bwd "
+        + f"; SP on vs off {a['sp']['vs_off_grad_rl2']:.3g}; "
+        + "; ".join(f"{arch} t = {f['sound']['t']} (token-split head), "
+                    f"gradients {f['sound']['grad_rl2']:.3g}, faults "
+                    + " / ".join(f"{f[k]['grad_rl2']:.3g}"
+                                 for k in ENCDEC_FAULTS[arch])
+                    + f", FLOPs a rank {f['sound']['flops'] / f['ref_flops']:.4f}"
+                    for arch, f in mesh["encdec"].items())
+        + f"; GPipe fwd + bwd "
         f"{b['seconds']:.3f} s; int8 cross-pod bytes {c['wire_bytes']} "
         f"in {c['seconds']:.3f} s; phase 12 {mesh['seconds']:.1f} s ({card})")
 

@@ -13,19 +13,21 @@ the step itself, so every figure is counted from what it runs:
 * train cells run ``steps.train_step(layout=...)`` over a dry
   ``sharding.ctx.Mesh`` (its collectives return tensors of the real
   ones' shapes and count as a real mesh counts), the step's compute
-  split along ``model`` as a real mesh's is (``steps.split_degree``;
-  ``--seq-par`` sets ``cfg.sequence_parallel``); prefill and decode
+  split along ``model`` as a real mesh's is (``steps.split_degree``,
+  every config, the encoder-decoder and a vocabulary t does not divide
+  included: the LM head then splits the tokens; ``--seq-par`` sets
+  ``cfg.sequence_parallel``); prefill and decode
   cells run the one-shot ``steps.prefill_step`` / ``serve_step`` on the
   tensor-parallel serving shards (``tp.shard_params``) under a dry
   ``tp`` context, the batch split over ``data`` and ``pod``; a decode
   cell whose batch does not divide them (long_500k's batch of 1) runs
   the sequence-sharded ``serve_step(mesh=...)`` over a dry mesh instead,
   each rank holding its S-slice of the cache (``rules.cache_spec``:
-  S over every axis).  The TP
+  S over every axis).  A serving cell's TP
   degree is the ``model`` axis, or its largest divisor the config
   divides into (``tp.validate``: KV heads, SSM heads, vocab), the rest
   of the axis holding replicas; encoder-decoders serve at tp = 1, as
-  the port's TP covers decoder stacks only;
+  the port's serving TP covers decoder stacks only;
 * ``resident_bytes``: this rank's params + optimizer state (train) or
   its weight shard + cache (serve; ``cache_bytes`` the cache alone);
 * ``peak_bytes``: the most bytes of live tensors (storages, each once)

@@ -248,10 +248,13 @@ def apply(params, spec: AttnSpec, x, positions, sp_cfg: SparsityConfig,
     Under tensor parallelism the heads are this rank's (``spec``): q/k/v
     are column-parallel, their input entering through ``tp.enter`` (in
     training its gradient is summed over the ranks; under sequence
-    parallelism the S-shards are gathered), and ``wo`` is row-parallel.
+    parallelism the S-shards are gathered), and ``wo`` is row-parallel;
+    so are a cross-attention's ``wq`` and ``wo``, given this rank's
+    heads of the cross K/V.
     Under a sequence shard (``seq.activate``) the decode cache is this
     rank's S-slice of a cache holding every KV head
     (:func:`_decode_seq`)."""
+    x = tp.enter(x)
     b, s, _ = x.shape
     if cross_kv is not None:
         q = _rope(spec, _split_heads(sl.apply(params["wq"], x, sp_cfg),
@@ -261,9 +264,7 @@ def apply(params, spec: AttnSpec, x, positions, sp_cfg: SparsityConfig,
                                                 sliding_window=None),
                             q, *cross_kv)
         return sl.apply(params["wo"], out.reshape(b, s, spec.q_dim),
-                        sp_cfg), cache
-    x = tp.enter(x)
-    b, s, _ = x.shape
+                        sp_cfg, reduce_out=True), cache
     q, k, v = _qkv(params, spec, x, positions, sp_cfg)
     shard = seq.current()
     if cache is None:

@@ -14,6 +14,16 @@ decoder stacks split into lists of per-layer dicts.  Training
 (:func:`lm_loss`) runs the encoder and the decoder with autograd on,
 each layer checkpointed under ``cfg.remat`` as JAX's scans are; the
 serving entry points keep ``torch.no_grad``.
+
+Under a tensor-parallel context (``sharding.tp``; the split train step
+of ``runtime.steps``) a rank computes its share, as the decoder stacks
+of ``models.transformer`` do: its heads and KV heads of all three
+attention kinds, ``w_in``'s column slice (GELU on its own columns) and
+``w_out``'s row-parallel K slice.  The encoder output enters the cross
+K/V projections once, ahead of the decoder stack (:func:`_cross_in`),
+so its gradient (each rank's wk/wv slice gives a partial one) is
+all-reduced once a step.  The residual stream stays whole: JAX's
+encoder-decoder reads no ``sequence_parallel``.
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import linear as sl
+from repro_torch.sharding import tp
 from . import attention, layers, transformer
 
 
@@ -33,10 +44,13 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _spec(cfg: ModelConfig, causal: bool) -> attention.AttnSpec:
+    """Attention spec; under an active tensor-parallel context this
+    rank's heads and KV heads (``transformer.attn_spec``)."""
+    shards = tp.size()
     return attention.AttnSpec(
-        d_model=cfg.d_model, num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-        causal=causal, sliding_window=None)
+        d_model=cfg.d_model, num_heads=cfg.num_heads // shards,
+        num_kv_heads=cfg.num_kv_heads // shards,
+        head_dim=cfg.resolved_head_dim, causal=causal, sliding_window=None)
 
 
 def _mlp_init(gen: torch.Generator, d: int, f: int, dtype):
@@ -45,11 +59,14 @@ def _mlp_init(gen: torch.Generator, d: int, f: int, dtype):
 
 
 def _mlp(params, x, sp):
+    """GELU MLP; under tensor parallelism ``w_in`` is column-parallel
+    (its input enters through ``tp.enter``) and ``w_out`` row-parallel."""
+    x = tp.enter(x)
     if sp.fuse_epilogue:  # GELU in the in-projection's kernel epilogue
-        return sl.apply(params["w_out"],
-                        sl.apply(params["w_in"], x, sp, activation="gelu"), sp)
-    h = F.gelu(sl.apply(params["w_in"], x, sp), approximate="tanh")
-    return sl.apply(params["w_out"], h, sp)  # jax.nn.gelu's tanh form
+        h = sl.apply(params["w_in"], x, sp, activation="gelu")
+    else:                 # jax.nn.gelu's tanh form
+        h = F.gelu(sl.apply(params["w_in"], x, sp), approximate="tanh")
+    return sl.apply(params["w_out"], h, sp, reduce_out=True)
 
 
 def _enc_layer_init(cfg, gen):
@@ -112,9 +129,16 @@ def encode(params, cfg: ModelConfig, audio_embeds) -> torch.Tensor:
     return _encode(params, cfg, audio_embeds)
 
 
+def _cross_in(enc_out):
+    """The encoder output entering the decoder's cross K/V projections
+    (``tp.copy_in``: its gradient summed over the ranks)."""
+    return tp.copy_in(enc_out)
+
+
 def _cross_kv(lp, cfg: ModelConfig, enc_out):
     """A decoder layer's cross-attention K/V over the encoder output:
-    [B, T, KVH, hd] each."""
+    [B, T, KVH, hd] each (this rank's KV heads under tensor
+    parallelism)."""
     sp, spec = cfg.sparsity, _spec(cfg, False)
     shp = tuple(enc_out.shape[:-1]) + (spec.num_kv_heads, spec.head_dim)
     return (sl.apply(lp["cross_attn"]["wk"], enc_out, sp).reshape(shp),
@@ -148,7 +172,7 @@ def lm_loss(params, cfg: ModelConfig, tokens, labels, audio_embeds):
     given the audio frames [B, T, D]; the decoder's layers checkpointed
     under ``cfg.remat`` and the LM head sequence-chunked
     (``transformer.chunked_xent``)."""
-    enc_out = _encode(params, cfg, audio_embeds)
+    enc_out = _cross_in(_encode(params, cfg, audio_embeds))
     b, s = tokens.shape
     dt = _dtype(cfg)
     x = layers.embed(params["embed"], tokens).to(dt)

@@ -29,7 +29,9 @@ vocab slice of the LM head, with the autograd collectives of ``tp``.
 The cross entropy is then vocab-parallel (:func:`_vocab_lse`,
 :func:`_vocab_pick`), and with ``cfg.sequence_parallel`` the residual
 stream between the collectives is split along S (Megatron-SP, JAX's
-``_sp``; :func:`lm_loss`).
+``_sp``; :func:`lm_loss`).  Where t does not divide the vocabulary the
+head splits the tokens instead (:func:`_token_block`): each rank takes
+the whole-vocabulary logits of its 1/t block of the sequence.
 """
 from __future__ import annotations
 
@@ -261,14 +263,47 @@ def _vocab_pick(logits, labels):
                                                       device=got.device)))
 
 
-def _chunk_loss(lm_head, cfg: ModelConfig, hc, lc):
+def _chunk_loss(lm_head, cfg: ModelConfig, hc, lc, vocab_split=True):
     """(summed NLL, valid count) of one sequence chunk; labels < 0 are
-    masked out."""
+    masked out.  ``vocab_split``: the logits are this rank's vocab slice
+    under tensor parallelism; else they span the whole vocabulary (the
+    token-split head's)."""
     logits = layers.unembed(lm_head, hc, cfg.sparsity).to(torch.float32)
-    lse = _vocab_lse(logits)
-    picked = _vocab_pick(logits, lc)
+    if vocab_split:
+        lse, picked = _vocab_lse(logits), _vocab_pick(logits, lc)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1,
+                              torch.clamp_min(lc, 0).long()[..., None])[..., 0]
     valid = (lc >= 0).to(torch.float32)
     return ((lse - picked) * valid).sum(), valid.sum()
+
+
+def _token_block(lm_head, h, labels):
+    """The token-split head's inputs on this rank: the LM head whole, its
+    gradient summed over the t ranks (``tp.replicated``); this rank's
+    contiguous block of S/t positions of ``h`` and the labels, in the
+    order ``tp.split_seq`` gives the ranks.  Under sequence parallelism
+    the residual stream is that block already; else ``h`` enters through
+    ``tp.copy_in``, so the blocks' gradients sum to its whole one."""
+    t, s = tp.size(), labels.shape[1]
+    if s % t:
+        raise ValueError(
+            f"the token-split LM head needs S % t == 0 (S={s}, t={t}): "
+            "t does not divide the vocabulary, so each of the t ranks "
+            "takes a block of the sequence")
+    n = s // t
+    labels = labels.narrow(1, tp.rank() * n, n)
+    if not tp.sp():
+        h = tp.copy_in(h).narrow(1, tp.rank() * n, n)
+    return tp.replicated(lm_head), h, labels
+
+
+def _token_sum(total, count):
+    """The token-split head's (NLL sum, label count), summed over the t
+    ranks in one all-reduce."""
+    both = tp.total(torch.stack([total, count]))
+    return both[0], both[1]
 
 
 def chunked_xent(lm_head, cfg: ModelConfig, h, labels):
@@ -276,10 +311,16 @@ def chunked_xent(lm_head, cfg: ModelConfig, h, labels):
     [B, chunk, V] logits are recomputed in the backward (checkpointed),
     so no full-sequence fp32 logits are ever held.  Returns the mean NLL
     over labels >= 0, ``total / max(count, 1)``.  Under tensor
-    parallelism ``h`` enters the column-parallel LM head once (gathered
-    along S under sequence parallelism) and each chunk's loss is
-    vocab-parallel."""
-    h = tp.enter(h)
+    parallelism over t ranks, where t divides the vocabulary, ``h``
+    enters the column-parallel LM head once (gathered along S under
+    sequence parallelism) and each chunk's loss is vocab-parallel; else
+    each rank runs the whole head over its block of the sequence
+    (:func:`_token_block`) and the sums are totalled over the ranks."""
+    split_tokens = tp.size() > 1 and not tp.vocab_parallel(cfg, tp.size())
+    if split_tokens:
+        lm_head, h, labels = _token_block(lm_head, h, labels)
+    else:
+        h = tp.enter(h)
     _, s, _ = h.shape
     chunk = min(cfg.logits_chunk, s)
     pad = (-s) % chunk
@@ -289,9 +330,11 @@ def chunked_xent(lm_head, cfg: ModelConfig, h, labels):
     total = count = None
     for c in range(0, s + pad, chunk):
         nll, n = remat(_chunk_loss, lm_head, cfg, h[:, c:c + chunk],
-                       labels[:, c:c + chunk])
+                       labels[:, c:c + chunk], not split_tokens)
         total = nll if total is None else total + nll
         count = n if count is None else count + n
+    if split_tokens:
+        total, count = _token_sum(total, count)
     return total / torch.clamp_min(count, 1.0)
 
 

@@ -8,13 +8,15 @@ state, laid out by JAX's rules.  The step splits its compute along the
 mesh's ``model`` axis, as GSPMD splits JAX's, Megatron-style: over t
 ranks, t the largest divisor of the axis the config allows
 (:func:`split_degree`: whole heads, KV heads, SSM heads, d_ff and vocab
-slices a rank; the axis' other ranks are replicas that compute the
-same).  In the step:
+slices a rank, or where t does not divide the vocabulary a block of the
+sequence for the LM head; the axis' other ranks are replicas that
+compute the same).  In the step:
 - each parameter piece becomes this rank's compute shard (``_Shard``):
   gathered over the data-parallel axes, and cut to this rank's block of
   t along the dim its role splits (``tp.shard_dim``: column-parallel
   leaves on their output, row-parallel on their input, per-head SSM
-  leaves on the heads; replicated leaves whole).  Where the piece is
+  leaves on the heads; replicated leaves whole, and the LM head whole
+  where it splits the tokens: :func:`shard_dims`).  Where the piece is
   stored split along ``model`` on that dim over all t ranks it is kept
   as it is; elsewhere (``wo`` and ``w_down``, stored ``out:model``;
   granite's expert stacks, stored on the expert dim) it is gathered
@@ -32,8 +34,8 @@ same).  In the step:
   then summed over the data-parallel axes (``pod``, ``data``) and cut
   to the rank's piece (``reduce_grad``);
 - AdamW updates the pieces (``adamw.update`` given the layout).
-An encoder-decoder runs at t = 1: every rank gathers each leaf whole and
-computes its batch slice (ROADMAP C).
+An encoder-decoder splits the same way: its encoder, decoder and
+cross-attention by heads, its GELU MLP by d_ff (``models.encdec``).
 
 ``serve_step`` given a mesh runs the sequence-sharded serve step, the
 port's form of JAX's decode under ``rules.cache_spec`` (the long_500k
@@ -109,11 +111,10 @@ def reduce_grad(g: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 
 def split_degree(cfg: ModelConfig, mesh) -> int:
     """t, the ranks of the ``model`` axis a step's compute splits over:
-    its largest divisor that ``tp.validate`` accepts for ``cfg`` (1 for
-    an encoder-decoder, whose mesh step splits no compute)."""
-    if getattr(cfg, "is_encoder_decoder", False):
-        return 1
-    return tp.degree(cfg, mesh.axis_size("model"))
+    its largest divisor that ``tp.validate`` accepts for a training step
+    of ``cfg`` (any vocabulary: the LM head splits the tokens where t
+    does not divide it)."""
+    return tp.degree(cfg, mesh.axis_size("model"), train=True)
 
 
 def _drop(spec: tuple, dim: int) -> tuple:
@@ -157,10 +158,13 @@ def _kept(spec: tuple, dim: int, axis: str) -> bool:
     return axis == "model" and dim < len(spec) and spec[dim] == "model"
 
 
-def shard_dims(params) -> list:
+def shard_dims(params, cfg: ModelConfig, t: int) -> list:
     """Per leaf (``tree.leaves`` order) the dim its tensor-parallel role
-    splits (``tp.shard_dim``), or None for a replicated leaf."""
-    return [tp.shard_dim(names, len(shape) - stacked)
+    in a training step over ``t`` ranks splits (``tp.shard_dim``), or
+    None for a leaf every rank computes whole (the LM head where ``t``
+    does not divide the vocabulary)."""
+    vp = tp.vocab_parallel(cfg, t)
+    return [tp.shard_dim(names, len(shape) - stacked, vocab_parallel=vp)
             for names, shape, stacked in rules.stacked_leaves(params)]
 
 
@@ -211,7 +215,7 @@ def sharded_grads(cfg: ModelConfig, params, batch, layout):
     pieces = trainable(params)
     t = split_degree(cfg, mesh)
     axis = mesh.split("model", t)
-    dims = shard_dims(params) if t > 1 else [None] * len(pieces)
+    dims = shard_dims(params, cfg, t) if t > 1 else [None] * len(pieces)
     shards = [_Shard.apply(p, s, d, mesh, axis)
               for p, s, d in zip(pieces, layout.params, dims)]
     count = (labels >= 0).sum().to(torch.float32)

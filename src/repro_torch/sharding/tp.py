@@ -41,6 +41,12 @@ runs the same kernels as a single-device engine on its local shapes.
 * :func:`degree`: the split degree of a config over an axis of ``n``
   ranks, the largest divisor of ``n`` that :func:`validate` accepts.
 
+Training (``runtime.steps``) keeps that table and adds an LM head that
+splits the tokens where t does not divide the vocabulary
+(``vocab_parallel=False``): the leaf whole on every rank, each rank
+taking its 1/t block of the sequence (``models.transformer``).  So
+``validate(train=True)`` refuses no vocabulary.
+
 Training splits its compute the same way (``runtime.steps``, Megatron's
 column- and row-parallel linears), so the collectives are autograd
 functions there:
@@ -102,9 +108,11 @@ _STATE = _State()
 _COUNTS = {"collectives": 0}
 
 # parent-dict names -> role (see the module docstring's table)
+# ``w_in`` / ``w_out`` (the encoder-decoder's GELU MLP) are not in JAX's
+# serving table: serving never splits an encoder-decoder, training does
 _COL_PARALLEL = {"wq", "wk", "wv", "wx", "wz", "wdt", "w_gate", "w_up",
-                 "lm_head"}
-_ROW_PARALLEL = {"wo", "w_down"}
+                 "w_in", "lm_head"}
+_ROW_PARALLEL = {"wo", "w_down", "w_out"}
 _REPLICATED = {"embed", "router", "wB", "wC"}
 # per-head / per-feature leaves sharded on their trailing dim
 _HEAD_SHARDED_LEAVES = {"conv_w", "A_log", "dt_bias", "D"}
@@ -464,11 +472,16 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 # ----------------------------------------------------------- shard functions
-def shard_dim(names: list[str], ndim: int) -> int | None:
+def shard_dim(names: list[str], ndim: int, *,
+              vocab_parallel: bool = True) -> int | None:
     """The dim JAX's role table shards for a leaf at the path ``names``
     (the dict keys from the root; list indices are ignored), or None when
-    the leaf is replicated.  ``_leaf_spec`` of ``repro.sharding.tp``."""
+    the leaf is replicated.  ``_leaf_spec`` of ``repro.sharding.tp``.
+    Without ``vocab_parallel`` the LM head is whole (the token-split
+    head)."""
     last = names[-1]
+    if "lm_head" in names and not vocab_parallel:
+        return None
     if any(n in _REPLICATED for n in names):
         return None
     if last in _HEAD_SHARDED_LEAVES:
@@ -504,7 +517,7 @@ def _in_features(names: list[str], mixer: dict | None, cfg) -> int:
     name = names[-1]
     if name in _COL_PARALLEL:
         return cfg.d_model
-    if name == "w_down":
+    if name in ("w_down", "w_out"):
         return cfg.d_ff
     if mixer is not None and "wx" in mixer:          # the SSM block's wo
         return cfg.ssm_expand * cfg.d_model
@@ -568,26 +581,34 @@ def shard_params(params, cfg, rank_: int, tp: int):
 
 
 # ------------------------------------------------------------ validation
-def degree(cfg, n: int) -> int:
+def degree(cfg, n: int, *, train: bool = False) -> int:
     """The split degree of ``cfg`` over an axis of ``n`` ranks: the
     largest divisor of ``n`` that :func:`validate` accepts (the rest of
-    the axis holds replicas)."""
+    the axis holds replicas); ``train`` for a training step's."""
     for t in sorted((d for d in range(1, n + 1) if n % d == 0),
                     reverse=True):
         try:
-            validate(cfg, t)
+            validate(cfg, t, train=train)
             return t
         except ValueError:
             continue
     return 1
 
 
-def validate(cfg, tp: int) -> None:
+def vocab_parallel(cfg, tp: int) -> bool:
+    """Whether a training step over ``tp`` ranks splits the LM head's
+    vocabulary (tp divides it), or else the tokens (the head whole)."""
+    return cfg.vocab_size % tp == 0
+
+
+def validate(cfg, tp: int, *, train: bool = False) -> None:
     """Fail fast on configs the TP partitioning cannot express: attention
     heads and KV heads divide tp (head-parallel KV pool), d_ff and vocab
     divide tp, SSM heads divide tp, and, for a packed ``compressed`` /
     ``slided`` model or a ``masked`` one (STE-pruned per shard in
-    training), each row-parallel K shard holds whole L-groups."""
+    training), each row-parallel K shard holds whole L-groups.  A
+    training step (``train``) takes any vocabulary: where tp does not
+    divide it, its LM head splits the tokens (:func:`vocab_parallel`)."""
     if tp <= 1:
         return
     errs = []
@@ -597,7 +618,7 @@ def validate(cfg, tp: int) -> None:
         errs.append(f"num_kv_heads={cfg.num_kv_heads}")
     if cfg.d_ff and cfg.d_ff % tp:
         errs.append(f"d_ff={cfg.d_ff}")
-    if cfg.vocab_size % tp:
+    if cfg.vocab_size % tp and not train:
         errs.append(f"vocab_size={cfg.vocab_size}")
     if "ssm" in cfg.unit_pattern:
         d_inner = cfg.ssm_expand * cfg.d_model
@@ -609,7 +630,9 @@ def validate(cfg, tp: int) -> None:
                                               "masked"):
         l = sp.pattern[1]
         qdim = cfg.num_heads * cfg.resolved_head_dim
-        row_ks = [("attn wo", qdim), ("w_down", cfg.d_ff)]
+        mlp = ("w_out" if getattr(cfg, "is_encoder_decoder", False)
+               else "w_down")
+        row_ks = [("attn wo", qdim), (mlp, cfg.d_ff)]
         if "ssm" in cfg.unit_pattern:
             row_ks.append(("ssm wo", cfg.ssm_expand * cfg.d_model))
         for name, k in row_ks:

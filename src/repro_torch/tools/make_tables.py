@@ -111,11 +111,13 @@ def lever(arch: str, shape: str, dominant: str) -> str:
     if dominant == "collective":
         if kind != "train":
             return "none: the serving cells already run TP shards"
-        flags = ["--seq-par"]
+        # the encoder-decoder reads no ``sequence_parallel``
+        flags = [] if cfg.is_encoder_decoder else ["--seq-par"]
         e = cfg.moe_num_experts
         if cfg.uses_moe and e % MODEL_AXIS:
             flags.append(f"--moe-pad {-(-e // MODEL_AXIS) * MODEL_AXIS}")
-        return " ".join(f"`{f}`" for f in flags)
+        return (" ".join(f"`{f}`" for f in flags)
+                or "none: the encoder-decoder reads no `sequence_parallel`")
     if kind == "decode":
         return "`--sparse 6 8 --precision int8` `--kv-int8`"
     if "swa" in cfg.unit_pattern:

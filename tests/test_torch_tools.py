@@ -193,6 +193,18 @@ def test_make_tables_rows(records, smoke):
     assert summary[0].startswith("cells: 3 of 80 recorded, 1 ok, 2 skipped")
 
 
+@pytest.mark.parametrize("arch, flag", [
+    ("whisper-small", None), (ARCH, "`--seq-par`")])
+def test_lever_names_seq_par_only_where_it_is_read(arch, flag):
+    """A collective-bound training cell is pointed at ``--seq-par`` only
+    where the model reads it: the encoder-decoder does not."""
+    text = make_tables.lever(arch, "train_4k", "collective")
+    if flag is None:
+        assert "--seq-par" not in text and text.startswith("none:")
+    else:
+        assert flag in text
+
+
 def test_op_profile_adds_up(profiled):
     p = profiled
     rec = p["record"]

@@ -25,6 +25,7 @@ import os
 import pathlib
 import sys
 import tempfile
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -65,6 +66,9 @@ GRAD_RL2 = 1e-5
 DECAY_GRAD_RL2 = 1e-4
 DECAY = ("A_log", "dt_bias")
 FAST_XLA = {"xla_backend_optimization_level": 0}
+# JAX traces one step at a time (two threads tracing at once have
+# crashed the interpreter); XLA compiles them in parallel
+_TRACE = threading.Lock()
 FAULTS = ("copy_in_no_sum", "local_lse")
 
 # case -> (arch, (data, model), sequence_parallel, fault)
@@ -206,12 +210,15 @@ def _jax_steps(arch, init):
     moment) and the params after both steps."""
     jcfg, _ = _cfgs(arch)
     opt = jadamw.AdamWConfig(lr=LR)
-    p0 = jax.tree_util.tree_map(jnp.asarray, init["p0"])
-    batches = init["batches"]
-    state = jadamw.init(p0, opt)._replace(step=jnp.asarray(WARM, jnp.int32))
-    jb = [{k: jnp.asarray(v) for k, v in b.items()} for b in batches]
-    step = jax.jit(lambda p, o, b: jsteps.train_step(jcfg, opt, p, o, b)) \
-        .lower(p0, state, jb[0]).compile(compiler_options=FAST_XLA)
+    with _TRACE:
+        p0 = jax.tree_util.tree_map(jnp.asarray, init["p0"])
+        batches = init["batches"]
+        state = jadamw.init(p0, opt)._replace(
+            step=jnp.asarray(WARM, jnp.int32))
+        jb = [{k: jnp.asarray(v) for k, v in b.items()} for b in batches]
+        lowered = jax.jit(lambda p, o, b: jsteps.train_step(
+            jcfg, opt, p, o, b)).lower(p0, state, jb[0])
+    step = lowered.compile(compiler_options=FAST_XLA)
     params = p0
     for i, b in enumerate(jb):
         params, state, m = step(params, state, b)
